@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port of Coconut (``src/repro_torch``).
+
+Run from the repository root on a machine with one CUDA GPU::
+
+    python3 chip_smoke.py
+
+It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each one against its plain PyTorch twin, then drives the port's main
+path at the paper's deployment (``configs/coconut_paper.py``: L=256, w=16,
+b=8, leaf 2000) over 8,388,608 z-normalized random walks made on the card:
+the Coconut-Tree build, batched exact k-NN (Q=64, k=10) through the eager
+kernel chain and through the fused ``scan_verify`` kernel, single-query
+parity, and a brute-force check.  Every phase raises on failure.  The last
+lines are the kernels' JSON record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
+repository, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+DEVICE = "cuda"
+N_ROWS = 8_388_608          # the paper's deployment scale, cut to one card
+GEN_CHUNK = 1 << 20
+N_QUERIES = 64
+K = 10
+SEED = 0
+# H100 SXM peaks (NVIDIA data sheet; dense FP32 without tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+TIMED = 20                  # kernel launches per median
+PLAIN_TIMED = 3             # plain-twin calls per median
+FLUSH_BYTES = 256 << 20     # > the 50 MB L2: a cold cache between launches
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def check(cond, msg: str) -> None:
+    if not bool(cond):
+        fail(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+class Timer:
+    """Kernel times from CUDA events: warmed up, then the median of
+    single launches, each behind a spin so the host's enqueue time is
+    not counted, optionally with the L2 flushed before every launch."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                 device=DEVICE)
+
+    def ms(self, fn, reps: int = TIMED, cold: bool = True) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            if cold:
+                self.flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: every kernel against its plain twin at ragged shapes
+# ---------------------------------------------------------------------------
+
+def kernel_phase(torch, np, S, ops, ref, dev) -> dict:
+    """Max abs error per kernel (the tolerance is 0: kernels and twins do
+    the same float operations in the same order, with no FMA)."""
+    err = {}
+
+    def launched(out):
+        torch.cuda.synchronize()     # a fault shows up at its launch
+        return out
+
+    def same(name, a, b):
+        torch.cuda.synchronize()
+        a, b = a.cpu(), b.cpu()
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{name}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        if a.dtype.is_floating_point:
+            fin = torch.isfinite(b)
+            check(torch.equal(torch.isfinite(a), fin),
+                  f"{name}: non-finite entries differ")
+            e = float((a[fin].double() - b[fin].double()).abs().max()) \
+                if fin.any() else 0.0
+        else:
+            e = float((a.long() - b.long()).abs().max()) if a.numel() else 0
+        err[name] = max(err.get(name, 0.0), e)
+        check(e == 0, f"{name}: kernel differs from its plain twin by {e}")
+
+    rng = np.random.default_rng(SEED)
+    for b in (1, 4, 8):
+        for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)):
+            for n in (257, 2037):
+                x = walks(np, rng, n, cfg.series_len)
+                xt = torch.from_numpy(x).to(dev)
+                for nq in (1, 8, 64):
+                    qt = torch.from_numpy(
+                        walks(np, rng, nq, cfg.series_len)).to(dev)
+                    _, codes = S.summarize(xt, cfg)
+                    q_paas = S.paa(qt, cfg.segments)
+                    lower, upper = S.region_bounds(b, device=dev)
+                    scale = cfg.series_len / cfg.segments
+                    md = launched(ops.mindist_batch(q_paas, codes, cfg))
+                    same("mindist_batch", md, ref.mindist_batch_ref(
+                        q_paas, codes, lower, upper, scale))
+                    same("mindist_batch",
+                         launched(ops.mindist(q_paas[0], codes, cfg)), md[0])
+                    ed = launched(ops.batch_euclid_multi(qt, xt))
+                    same("batch_euclid", ed, ref.batch_euclid_ref(qt, xt))
+                    idx = torch.from_numpy(
+                        rng.integers(0, n, (nq, 333))).to(dev)
+                    same("batch_euclid_gather",
+                         launched(ops.batch_euclid_multi(qt, xt, idx=idx)),
+                         ref.batch_euclid_gather_ref(qt, xt, idx))
+                    bound = ed.median(dim=1).values
+                    dead = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+                    for k in (1, 10):
+                        got = launched(ops.scan_verify(
+                            qt, q_paas, codes, xt, bound, cfg, k=k,
+                            dead=dead))
+                        want = ref.scan_verify_ref(
+                            qt, q_paas, codes, xt, lower, upper, bound,
+                            dead.to(torch.int32), scale=scale, k=k)
+                        for g, w_ in zip(got, want):
+                            same("scan_verify", g, w_)
+                got = launched(ops.summarize_and_key(xt, cfg))
+                want = ref.fused_build_ref(
+                    xt, S.breakpoints(b, device=dev), segments=cfg.segments,
+                    bits=b)
+                for g, w_ in zip(got, want):
+                    same("fused_build", g, w_)
+    return err
+
+
+def walks(np, rng, n, L):
+    x = np.cumsum(rng.standard_normal((n, L)), axis=1)
+    x = (x - x.mean(1, keepdims=True)) / (x.std(1, keepdims=True) + 1e-8)
+    return x.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# phases 3-7: the main path at full width
+# ---------------------------------------------------------------------------
+
+def make_data(torch, series, gen, n, L):
+    x = torch.empty((n, L), dtype=torch.float32, device=DEVICE)
+    for s in range(0, n, GEN_CHUNK):
+        x[s:s + GEN_CHUNK] = series.random_walk(gen, min(GEN_CHUNK, n - s), L)
+    return x
+
+
+def brute_force(torch, tree, queries, k):
+    """Blocked plain-torch exact k-NN over every row: an fp32 matmul
+    selects each block's 64 nearest candidates, which are re-scored with
+    the direct diff-square-sum and merged (stable on ties)."""
+    q = queries
+    qn = (q * q).sum(1, keepdim=True)
+    cand_d, cand_i = [], []
+    raw = tree.raw
+    step = 1 << 20
+    for s in range(0, tree.n, step):
+        blk = raw[s:s + step]
+        approx = qn - 2.0 * (q @ blk.T) + (blk * blk).sum(1)[None, :]
+        sel = torch.topk(approx, 64, dim=1, largest=False).indices + s
+        rows = raw[sel]                                    # [Q, 64, L]
+        cand_d.append(((rows - q[:, None, :]) ** 2).sum(-1))
+        cand_i.append(sel)
+    d = torch.cat(cand_d, 1)
+    i = torch.cat(cand_i, 1)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    return (torch.gather(d, 1, order).cpu().numpy(),
+            tree.offsets[torch.gather(i, 1, order)].cpu().numpy())
+
+
+def device_busy_ms(torch, fn) -> float:
+    """Sum of CUDA kernel time in one run of ``fn`` (torch.profiler);
+    prints the largest entries."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            total += t
+            rows.append((t, e.count, e.key))
+    rows.sort(reverse=True)
+    for t, c, key in rows[:8]:
+        print(f"  profile {t / 1e3:10.3f} ms {c:6d}x  {key[:90]}")
+    return total / 1e3
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core.keys import key_less
+    from repro_torch.core import summarization as S
+    from repro_torch.core import tree as T
+    from repro_torch.data import series
+    from repro_torch.kernels import loader, ops, ref
+    from repro_torch.query import Partition, build_plan, exact_knn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    card = card_line()
+
+    # -- 0: versions ---------------------------------------------------------
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    print(card)
+
+    # -- 1: build the kernels --------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = loader.build()
+    loader.library()
+    print(f"build: kernels built in {time.perf_counter() - t0:.1f} s "
+          f"({lib_path.relative_to(ROOT)})")
+    for log in sorted(lib_path.parent.glob("*.log")):
+        regs = [ln.split(":", 1)[1].strip() for ln in
+                log.read_text().splitlines() if "Used" in ln]
+        if regs:
+            print(f"  ptxas {log.stem}: {'; '.join(regs)}")
+
+    # -- 2: every kernel against its plain twin --------------------------------
+    t0 = time.perf_counter()
+    errs = kernel_phase(torch, np, S, ops, ref, dev)
+    print(f"kernels: all equal to their plain twins (max abs err "
+          f"{max(errs.values())}) in {time.perf_counter() - t0:.1f} s")
+
+    # -- 3: build the tree at full width ---------------------------------------
+    cfg, leaf = INDEX, LEAF_SIZE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    x = make_data(torch, series, gen, N_ROWS, cfg.series_len)
+    queries = series.query_workload(gen, x, N_QUERIES)
+    torch.cuda.synchronize()
+    print(f"data: {N_ROWS} x {cfg.series_len} random walks in "
+          f"{time.perf_counter() - t0:.2f} s")
+    loader.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = T.build(x, cfg, leaf_size=leaf)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = dict(loader.LAUNCHES)
+    del x
+    check(build_launches.get("fused_build", 0) > 0,
+          f"build launched no fused_build: {build_launches}")
+    check(not key_less(tree.keys[1:], tree.keys[:-1]).any(),
+          "keys not lexicographically non-decreasing")
+    check(torch.equal(torch.sort(tree.offsets).values,
+                      torch.arange(tree.n, device=dev)),
+          "offsets are not a permutation")
+    sample = slice(0, 1 << 16)
+    want = ref.fused_build_ref(tree.raw[sample], S.breakpoints(cfg.bits,
+                                                               device=dev),
+                               segments=cfg.segments, bits=cfg.bits)
+    for got, w_ in zip((tree.paas[sample], tree.codes[sample],
+                        tree.keys[sample]), want):
+        check(torch.equal(got, w_), "tree summaries differ from the twin")
+    print(f"build: {tree.n} rows, {tree.n_leaves} leaves in {build_s:.3f} s; "
+          f"launches {build_launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # -- 4: eager batched exact search -----------------------------------------
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    e_d, e_o, e_stats = T.exact_search_batch(tree, queries, k=K)
+    eager_cold_s = time.perf_counter() - t0
+    eager_launches = dict(loader.LAUNCHES)
+    for name in ("mindist_batch", "batch_euclid", "batch_euclid_gather"):
+        check(eager_launches.get(name, 0) > 0,
+              f"eager search launched no {name}: {eager_launches}")
+    t0 = time.perf_counter()
+    e_d2, e_o2, e_stats2 = T.exact_search_batch(tree, queries, k=K)
+    eager_s = time.perf_counter() - t0
+    check(np.array_equal(e_o, e_o2) and np.array_equal(e_d, e_d2),
+          "two eager runs disagree")
+    tm = e_stats2.timings
+    staged = sum(tm.get(s, 0.0) for s in ("seed", "bound", "verify", "merge"))
+    host = tm["scan"] - staged
+    print(f"eager: Q={N_QUERIES} k={K}: {eager_cold_s:.3f} s first batch, "
+          f"{eager_s:.3f} s per batch warm; launches {eager_launches}")
+    print("eager split (s): " + ", ".join(
+        f"{s}={tm.get(s, 0.0) / 1e3:.3f}"
+        for s in ("plan", "seed", "bound", "verify", "merge"))
+        + f", host-other={host / 1e3:.3f}, scan={tm['scan'] / 1e3:.3f}")
+    print(f"eager stats: leaves_scanned={e_stats2.leaves_scanned} "
+          f"leaves_pruned={e_stats2.leaves_pruned} "
+          f"candidates={e_stats2.candidates} "
+          f"pruned_frac={e_stats2.pruned_frac:.6f} "
+          f"leaves_touched={e_stats2.leaves_touched}")
+    busy = device_busy_ms(
+        torch, lambda: T.exact_search_batch(tree, queries, k=K))
+    print(f"eager device busy (torch.profiler, kernel time in one batch): "
+          f"{busy:.3f} ms of {eager_s * 1e3:.1f} ms wall "
+          f"({100 * busy / (eager_s * 1e3):.2f}%)")
+
+    # -- 5: fused search ---------------------------------------------------------
+    part = Partition.from_tree(tree)
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    f_d, f_o, f_stats = exact_knn([part], queries, cfg, k=K,
+                                  scan_mode="kernel")
+    fused_s = time.perf_counter() - t0
+    fused_launches = dict(loader.LAUNCHES)
+    check(fused_launches.get("scan_verify", 0) > 0,
+          f"fused search launched no scan_verify: {fused_launches}")
+    check(np.array_equal(f_o, e_o), "fused ids differ from eager")
+    check(np.array_equal(f_d.view(np.uint32), e_d.view(np.uint32)),
+          "fused dists are not bitwise equal to eager")
+    print(f"fused: {fused_s:.3f} s per batch; launches {fused_launches}; "
+          f"equal to eager (ids, dist bits); leaves_scanned="
+          f"{f_stats.leaves_scanned} candidates={f_stats.candidates}")
+
+    # -- 6: single == batch --------------------------------------------------------
+    for qi in (0, 1, N_QUERIES // 2, N_QUERIES - 1):
+        s_d, s_o, _ = T.exact_search(tree, queries[qi], k=K)
+        check(np.array_equal(s_o, e_o[qi])
+              and np.array_equal(s_d.view(np.uint32),
+                                 e_d[qi].view(np.uint32)),
+              f"single query {qi} differs from its batch row")
+    print("single == batch: bitwise for 4 queries")
+
+    # -- 7: brute force ------------------------------------------------------------
+    t0 = time.perf_counter()
+    b_d, b_o = brute_force(torch, tree, queries, K)
+    diff = b_o != e_o
+    ties_ok = np.allclose(b_d[diff], e_d[diff], rtol=1e-5)
+    check(not diff.any() or ties_ok,
+          f"{int(diff.sum())} answer ids differ from brute force")
+    check(np.allclose(b_d, e_d, rtol=1e-5), "dists differ from brute force")
+    print(f"brute force: ids agree ({int(diff.sum())} tie swaps), dists "
+          f"within rtol 1e-5, in {time.perf_counter() - t0:.2f} s")
+
+    # -- 8: each kernel at the main path's shapes ----------------------------------
+    timer = Timer(torch)
+    q = queries.contiguous()
+    q_paas = S.paa(q, cfg.segments)
+    plan = build_plan([part], q_paas.cpu().numpy())
+    first = int(np.argmin(plan.entries[0].leaf_bounds.min(axis=0)))
+    rows = slice(first * leaf, min((first + 1) * leaf, tree.n))
+    codes_leaf, raw_leaf = tree.codes[rows], tree.raw[rows]
+    seed_idx = T._seed_index(tree, q)
+    seed_d = ops.batch_euclid_multi(q, tree.raw, idx=seed_idx)
+    bound = torch.sort(seed_d, dim=1).values[:, K - 1].contiguous()
+    lower, upper, bps = ops._tables(cfg.bits, dev)
+    scale = cfg.series_len / cfg.segments
+    md = ops.mindist_batch(q_paas, codes_leaf, cfg)
+    keep = (md < bound[:, None]).any(0)
+    verify_rows = raw_leaf[keep].contiguous()
+    nq, L, w = N_QUERIES, cfg.series_len, cfg.segments
+    nl = codes_leaf.shape[0]
+    nv = verify_rows.shape[0]
+    c = seed_idx.shape[1]
+    uniq = int(torch.unique(seed_idx).numel())
+    sv = ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound, cfg, k=K)
+    live_pairs, union = int(sv[2].sum()), int(sv[3])
+    for name, got, want in (
+            ("mindist_batch", md, ref.mindist_batch_ref(
+                q_paas, codes_leaf, lower, upper, scale)),
+            ("batch_euclid", ops.batch_euclid_multi(q, verify_rows),
+             ref.batch_euclid_ref(q, verify_rows)),
+            ("batch_euclid_gather", seed_d, ref.batch_euclid_gather_ref(
+                q, tree.raw, seed_idx)),
+            ("scan_verify", sv[0], ref.scan_verify_ref(
+                q, q_paas, codes_leaf, raw_leaf, lower, upper, bound,
+                torch.zeros(nl, dtype=torch.int32, device=dev), scale=scale,
+                k=K)[0])):
+        check(torch.equal(got, want), f"{name} differs at main-path shape")
+    cases = {
+        "mindist_batch": dict(
+            source="src/repro_torch/kernels/csrc/mindist_batch.cu",
+            replaces="src/repro/kernels/mindist_batch.py:70",
+            shape=f"Q={nq} x N={nl} rows (one leaf), w={w}",
+            fn=lambda: ops.mindist_batch(q_paas, codes_leaf, cfg),
+            plain=lambda: ref.mindist_batch_ref(q_paas, codes_leaf, lower,
+                                                upper, scale),
+            library=None,
+            bound=bound_ms(nl * w + nq * w * 4 + 2 * 256 * 4 + nq * nl * 4,
+                           nq * nl * (7 * w + 1))),
+        "batch_euclid": dict(
+            source="src/repro_torch/kernels/csrc/batch_euclid.cu",
+            replaces="src/repro/kernels/batch_euclid.py:45",
+            shape=f"Q={nq} x N={nv} verified rows, L={L}",
+            fn=lambda: ops.batch_euclid_multi(q, verify_rows),
+            plain=lambda: ref.batch_euclid_ref(q, verify_rows),
+            library=lambda: torch.cdist(
+                q, verify_rows,
+                compute_mode="donot_use_mm_for_euclid_dist").square_(),
+            # the executor gathers these rows just before: warm in L2
+            cold=False,
+            bound=bound_ms((nq + nv) * L * 4 + nq * nv * 4, 3 * nq * nv * L)),
+        "batch_euclid_gather": dict(
+            source="src/repro_torch/kernels/csrc/batch_euclid.cu",
+            replaces="src/repro/kernels/batch_euclid.py:45",
+            shape=f"Q={nq} x C={c} seed rows ({uniq} distinct), L={L}",
+            fn=lambda: ops.batch_euclid_multi(q, tree.raw, idx=seed_idx),
+            plain=lambda: ref.batch_euclid_gather_ref(q, tree.raw, seed_idx),
+            library=None,
+            bound=bound_ms(nq * L * 4 + uniq * L * 4 + nq * c * 12,
+                           3 * nq * c * L)),
+        "scan_verify": dict(
+            source="src/repro_torch/kernels/csrc/scan_verify.cu",
+            replaces="src/repro/kernels/scan_verify.py:130",
+            shape=f"Q={nq} x N={nl} rows, k={K}, {live_pairs} live pairs, "
+                  f"{union} live rows",
+            fn=lambda: ops.scan_verify(q, q_paas, codes_leaf, raw_leaf,
+                                       bound, cfg, k=K),
+            plain=lambda: ref.scan_verify_ref(
+                q, q_paas, codes_leaf, raw_leaf, lower, upper, bound,
+                torch.zeros(nl, dtype=torch.int32, device=dev), scale=scale,
+                k=K),
+            library=None,
+            bound=bound_ms(nl * w + union * L * 4 + nq * (L + w + 3) * 4
+                           + nq * K * 8,
+                           nq * nl * (7 * w + 1) + 3 * L * live_pairs)),
+        "fused_build": dict(
+            source="src/repro_torch/kernels/csrc/fused_build.cu",
+            replaces="src/repro/kernels/fused_build.py:57",
+            shape=f"N={tree.n} x L={L}",
+            fn=lambda: ops.summarize_and_key(tree.raw, cfg),
+            plain=lambda: ref.fused_build_ref(tree.raw, bps,
+                                              segments=w, bits=cfg.bits),
+            library=None,
+            bound=bound_ms(tree.n * (L * 4 + w * 5 + cfg.n_words * 8),
+                           tree.n * (L + w * (1 + cfg.bits)))),
+    }
+    launches = {}
+    for phase in (build_launches, eager_launches, fused_launches):
+        for name, v in phase.items():
+            launches[name] = launches.get(name, 0) + v
+    record = []
+    for name, cs in cases.items():
+        cold = cs.get("cold", True)
+        ms = timer.ms(cs["fn"], cold=cold)
+        plain = timer.ms(cs["plain"], reps=PLAIN_TIMED, cold=cold)
+        lib = None if cs["library"] is None else timer.ms(cs["library"],
+                                                          cold=cold)
+        b_ms, b_by = cs["bound"]
+        record.append({
+            "name": name, "route": "cuda", "source": cs["source"],
+            "replaces": cs["replaces"], "launches": launches.get(name, 0),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        print(f"kernel {name} [{cs['shape']}, L2 "
+              f"{'cold' if cold else 'warm'}]: {ms:.4f} ms (plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}), launches "
+              f"{launches.get(name, 0)}")
+
+    # ops.mindist is the Q = 1 case of mindist_batch (the single-query TPU
+    # kernel's function); it is not on the main path, so it has no record
+    ms1 = timer.ms(lambda: ops.mindist(q_paas[0], codes_leaf, cfg))
+    plain1 = timer.ms(lambda: ref.mindist_batch_ref(
+        q_paas[:1], codes_leaf, lower, upper, scale), reps=PLAIN_TIMED)
+    b1, by1 = bound_ms(nl * w + w * 4 + 2 * 256 * 4 + nl * 4,
+                       nl * (7 * w + 1))
+    print(f"kernel mindist_batch at Q=1 (ops.mindist) [N={nl} rows, L2 "
+          f"cold]: {ms1:.4f} ms (plain {plain1:.4f} ms, bound {b1:.4f} ms "
+          f"by {by1})")
+
+    # -- 9: the record and the result ------------------------------------------------
+    print(json.dumps({"kernels": record}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

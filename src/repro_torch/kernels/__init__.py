@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for the Coconut hot paths (+ plain twins).
+
+Kernels (each ``<name>.py`` wraps its ``csrc/<name>.cu``; ``ops.py``
+dispatches by device; ``ref.py`` holds the plain PyTorch twins that are
+the CPU path and the kernels' oracle; ``loader.py`` builds, loads and
+counts them):
+  * mindist_batch  — batched SIMS lower bound (the exact-search hot loop)
+  * batch_euclid   — squared ED, cross and gathered forms (verification,
+                     seed probes)
+  * scan_verify    — fused scan: lower bound + masked early-abandoning
+                     verification + per-query top-k
+  * fused_build    — raw series -> PAA, SAX codes and z-order keys in one
+                     pass (the Coconut-Tree build)
+"""
+from . import ops, ref  # noqa: F401

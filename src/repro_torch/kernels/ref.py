@@ -1,0 +1,151 @@
+"""Plain PyTorch twins of the CUDA kernels in ``csrc/``.
+
+Each twin computes its kernel's function with the same float operations
+in the same order (no fused multiply-add, which eager PyTorch never
+forms), so on any device a twin and its kernel agree bit for bit.  The
+wrappers route a CPU tensor here; on the card the twins are the oracle
+``chip_smoke.py`` holds every kernel against.
+
+Summation orders (shared with ``csrc/common.cuh``):
+
+* squared ED — lane ``l`` of a 32-lane warp sums ``(x_i - q_i)**2`` for
+  ``i = l, l + 32, ...`` in order; the 32 partials are then folded in
+  halves (``p[i] + p[i + 16]``, then ``+ 8``, ...).  The order depends
+  only on ``L``, never on the batch, the tile or the launch, so a
+  (query, row) pair has the same distance bits in every code path.
+* mindist — per pair, the ``w`` segment terms are added in index order,
+  then scaled by ``L / w``.
+* PAA — each segment summed in index order, then divided by its length.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import keys as K
+from ..core import summarization as S
+
+__all__ = ["ED_LANES", "ed_pairs", "mindist_batch_ref", "batch_euclid_ref",
+           "batch_euclid_gather_ref", "scan_verify_ref", "fused_build_ref"]
+
+ED_LANES = 32
+# elements per [Q, rows, L] or [Q, rows, w] intermediate: rows are taken in
+# blocks so the plain versions stay within a bounded working set
+_BLOCK_ELEMS = 1 << 22
+
+
+def ed_pairs(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Squared ED over the last axis of broadcastable ``x`` and ``q``
+    in the kernels' lane order (see the module docstring)."""
+    d = x - q
+    sq = d * d
+    L = sq.shape[-1]
+    pad = (-L) % ED_LANES
+    if pad:
+        sq = torch.nn.functional.pad(sq, (0, pad))
+    c = sq.unflatten(-1, (-1, ED_LANES))          # [..., L/32, 32]
+    acc = c[..., 0, :]
+    for i in range(1, c.shape[-2]):
+        acc = acc + c[..., i, :]
+    off = ED_LANES // 2
+    while off:
+        acc = acc[..., :off] + acc[..., off:2 * off]
+        off //= 2
+    return acc[..., 0]
+
+
+def _row_block(nq: int, width: int) -> int:
+    return max(1, _BLOCK_ELEMS // max(1, nq * width))
+
+
+def mindist_batch_ref(q_paas: torch.Tensor, codes: torch.Tensor,
+                      lower: torch.Tensor, upper: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """Batched squared iSAX lower bound: q_paas ``[Q, w]`` f32, codes
+    ``[N, w]`` (uint8) -> ``[Q, N]`` f32 with ``lower``/``upper`` the
+    ``[2**b]`` region tables (+/-inf at the ends)."""
+    nq, w = q_paas.shape
+    n = codes.shape[0]
+    out = torch.empty((nq, n), dtype=torch.float32, device=codes.device)
+    q = q_paas[:, None, :]
+    step = _row_block(nq, w)
+    for s in range(0, n, step):
+        c = codes[s:s + step].to(torch.int64)
+        lb, ub = lower[c][None], upper[c][None]
+        d = (lb - q).clamp_min(0.0) + (q - ub).clamp_min(0.0)   # [Q, B, w]
+        sq = d * d
+        acc = sq[..., 0]
+        for j in range(1, w):
+            acc = acc + sq[..., j]
+        out[:, s:s + step] = scale * acc
+    return out
+
+
+def batch_euclid_ref(queries: torch.Tensor,
+                     series: torch.Tensor) -> torch.Tensor:
+    """Cross form: queries ``[Q, L]``, series ``[N, L]`` -> ``[Q, N]``."""
+    nq, L = queries.shape
+    n = series.shape[0]
+    out = torch.empty((nq, n), dtype=torch.float32, device=series.device)
+    step = _row_block(nq, L)
+    for s in range(0, n, step):
+        out[:, s:s + step] = ed_pairs(series[None, s:s + step],
+                                      queries[:, None, :])
+    return out
+
+
+def batch_euclid_gather_ref(queries: torch.Tensor, series: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """Gathered form: ``out[q, c] = ED(queries[q], series[idx[q, c]])``,
+    queries ``[Q, L]``, series ``[M, L]``, idx ``[Q, C]`` -> ``[Q, C]``."""
+    nq, L = queries.shape
+    c = idx.shape[1]
+    out = torch.empty((nq, c), dtype=torch.float32, device=series.device)
+    step = _row_block(nq, L)
+    for s in range(0, c, step):
+        rows = series[idx[:, s:s + step]]                       # [Q, B, L]
+        out[:, s:s + step] = ed_pairs(rows, queries[:, None, :])
+    return out
+
+
+def scan_verify_ref(queries: torch.Tensor, q_paas: torch.Tensor,
+                    codes: torch.Tensor, raw: torch.Tensor,
+                    lower: torch.Tensor, upper: torch.Tensor,
+                    bound: torch.Tensor, dead: torch.Tensor, *,
+                    scale: float, k: int):
+    """Fused scan+verify: the lower bound, the live mask ``md < bound[q]``
+    on rows not ``dead``, ED of live pairs, and each query's top-k.
+
+    Returns (dists ``[Q, k]`` f32 inf-padded, row indices ``[Q, k]``
+    int32 with -1 where the dist is inf, live counts ``[Q]`` int32, union
+    int32 — rows live for any query).  Ties go to the lowest row index
+    (stable sort, then the first k)."""
+    md = mindist_batch_ref(q_paas, codes, lower, upper, scale)
+    live = (md < bound[:, None]) & (dead == 0)[None, :]
+    ed = torch.where(live, batch_euclid_ref(queries, raw),
+                     torch.tensor(float("inf"), device=raw.device))
+    sd, si = torch.sort(ed, dim=1, stable=True)
+    d = sd[:, :k].contiguous()
+    idx = torch.where(torch.isfinite(d), si[:, :k].to(torch.int32),
+                      torch.tensor(-1, dtype=torch.int32, device=raw.device))
+    counts = live.sum(dim=1).to(torch.int32)
+    union = live.any(dim=0).sum().to(torch.int32)
+    return d, idx, counts, union
+
+
+def fused_build_ref(x: torch.Tensor, bps: torch.Tensor, *,
+                    segments: int, bits: int):
+    """Raw ``[N, L]`` f32 -> (paa ``[N, w]`` f32, codes ``[N, w]`` uint8,
+    keys ``[N, n_words]`` int64): each code is the number of breakpoints
+    <= its PAA value, the key the bit interleave of the codes."""
+    n = x.shape[0]
+    p = torch.empty((n, segments), dtype=torch.float32, device=x.device)
+    codes = torch.empty((n, segments), dtype=torch.uint8, device=x.device)
+    keys = torch.empty((n, K.n_key_words(segments, bits)), dtype=torch.int64,
+                       device=x.device)
+    step = _row_block(1, segments * bits)
+    for s in range(0, n, step):
+        p[s:s + step] = S.paa(x[s:s + step], segments)
+        c = torch.searchsorted(bps, p[s:s + step], right=True)
+        codes[s:s + step] = c
+        keys[s:s + step] = K.interleave_codes(c, w=segments, b=bits)
+    return p, codes, keys

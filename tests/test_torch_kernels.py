@@ -1,0 +1,183 @@
+"""CUDA sweeps of the port's hand-written kernels against their plain twins.
+
+Every test needs a CUDA device and skips without one (the ``cuda`` fixture
+decides at run time).  On the card each kernel is held against its twin in
+``repro_torch.kernels.ref`` on the same CUDA tensors, and against the twin on
+the CPU.  Tolerance: none — kernels and twins perform the same float32
+operations in the same order with no fused multiply-add (see
+``csrc/common.cuh``), so floats must agree bit for bit; ints exactly.
+Shapes: N not a multiple of any block, Q in {1, 8, 64}, b in {1, 4, 8},
+k in {1, 10}.  ``chip_smoke.py``'s kernel phase runs the same checks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import summarization as S
+from repro_torch.kernels import loader, ops, ref
+
+NS = (1, 257, 2000 + 37)
+QS = (1, 8, 64)
+BITS = (1, 4, 8)
+CFGS = {b: [S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)]
+        for b in BITS}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    loader.library()
+    return torch.device("cuda")
+
+
+def _walks(rng, n, L):
+    x = np.cumsum(rng.standard_normal((n, L)), axis=1)
+    x = (x - x.mean(1, keepdims=True)) / (x.std(1, keepdims=True) + 1e-8)
+    return x.astype(np.float32)
+
+
+def _inputs(seed, n, nq, cfg, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_walks(rng, n, cfg.series_len))
+    q = torch.from_numpy(_walks(rng, nq, cfg.series_len))
+    paa, codes = S.summarize(x, cfg)
+    q_paas = S.paa(q, cfg.segments)
+    return {k: v.to(dev) for k, v in
+            dict(x=x, q=q, codes=codes, paa=paa, q_paas=q_paas).items()}
+
+
+def _same(a, b):
+    np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("b", BITS)
+@pytest.mark.parametrize("nq", QS)
+@pytest.mark.parametrize("n", NS)
+def test_mindist_batch_kernel(cuda, n, nq, b):
+    for cfg in CFGS[b]:
+        t = _inputs(n + nq + b, n, nq, cfg, cuda)
+        got = ops.mindist_batch(t["q_paas"], t["codes"], cfg)
+        torch.cuda.synchronize()
+        lower, upper = S.region_bounds(b, device=cuda)
+        scale = cfg.series_len / cfg.segments
+        _same(got, ref.mindist_batch_ref(t["q_paas"], t["codes"], lower,
+                                         upper, scale))
+        _same(got, ops.mindist_batch(t["q_paas"].cpu(), t["codes"].cpu(),
+                                     cfg))
+        _same(ops.mindist(t["q_paas"][0], t["codes"], cfg), got[0])
+
+
+def test_mindist_batch_kernel_unaligned_codes(cuda):
+    """A codes view that is not 16-byte aligned takes the byte-wise path."""
+    cfg = S.SummaryConfig(256, 16, 8)
+    t = _inputs(7, 300, 8, cfg, cuda)
+    view = t["codes"][1:]
+    got = ops.mindist_batch(t["q_paas"], view, cfg)
+    _same(got, ops.mindist_batch(t["q_paas"].cpu(), view.cpu(), cfg))
+
+
+@pytest.mark.parametrize("nq", QS)
+@pytest.mark.parametrize("n", NS)
+def test_batch_euclid_kernel(cuda, n, nq):
+    for L in (64, 256, 100):
+        cfg = S.SummaryConfig(L, 4, 4)
+        t = _inputs(n * nq + L, n, nq, cfg, cuda)
+        got = ops.batch_euclid_multi(t["q"], t["x"])
+        torch.cuda.synchronize()
+        _same(got, ref.batch_euclid_ref(t["q"], t["x"]))
+        _same(got, ops.batch_euclid_multi(t["q"].cpu(), t["x"].cpu()))
+        # gathered form: the same pairs give the same bits
+        rng = np.random.default_rng(n)
+        idx = torch.from_numpy(rng.integers(0, n, (nq, 33))).to(cuda)
+        gat = ops.batch_euclid_multi(t["q"], t["x"], idx=idx)
+        torch.cuda.synchronize()
+        _same(gat, torch.gather(got, 1, idx))
+        _same(ops.batch_euclid(t["q"][0], t["x"]), got[0])
+
+
+@pytest.mark.parametrize("k", (1, 10))
+@pytest.mark.parametrize("b", BITS)
+@pytest.mark.parametrize("nq", QS)
+@pytest.mark.parametrize("n", NS)
+def test_scan_verify_kernel(cuda, n, nq, b, k):
+    for cfg in CFGS[b]:
+        t = _inputs(n + 3 * nq + b + k, n, nq, cfg, cuda)
+        k_eff = min(k, n)
+        ed = ops.batch_euclid_multi(t["q"], t["x"])
+        # a bound that keeps roughly half the rows per query
+        bound = ed.median(dim=1).values
+        dead = torch.from_numpy(
+            np.random.default_rng(n).random(n) < 0.2).to(cuda)
+        for dd in (None, dead):
+            got = ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
+                                  bound, cfg, k=k_eff, dead=dd)
+            torch.cuda.synchronize()
+            cpu = ops.scan_verify(t["q"].cpu(), t["q_paas"].cpu(),
+                                  t["codes"].cpu(), t["x"].cpu(),
+                                  bound.cpu(), cfg, k=k_eff,
+                                  dead=None if dd is None else dd.cpu())
+            for a, c in zip(got, cpu):
+                _same(a, c)
+
+
+def test_scan_verify_ties_go_to_lowest_row(cuda):
+    cfg = S.SummaryConfig(64, 8, 4)
+    t = _inputs(3, 600, 8, cfg, cuda)
+    x = t["x"].clone()
+    x[300:600] = x[0:300]          # every row has an exact twin later on
+    paa, codes = S.summarize(x, cfg)
+    bound = torch.full((8,), float("inf"), device=cuda)
+    d, i, _, _ = ops.scan_verify(t["q"], t["q_paas"], codes, x, bound, cfg,
+                                 k=10)
+    # each winner is followed by its later twin, at the same distance
+    assert (i[:, ::2] < 300).all()
+    _same(i[:, 1::2], i[:, ::2] + 300)
+    _same(d[:, 1::2], d[:, ::2])
+    cpu = ops.scan_verify(t["q"].cpu(), t["q_paas"].cpu(), codes.cpu(),
+                          x.cpu(), bound.cpu(), cfg, k=10)
+    _same(i, cpu[1])
+    _same(d, cpu[0])
+
+
+def test_scan_verify_rejects_large_k(cuda):
+    cfg = S.SummaryConfig(64, 8, 4)
+    t = _inputs(1, 100, 2, cfg, cuda)
+    with pytest.raises(ValueError):
+        ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
+                        torch.ones(2, device=cuda), cfg, k=65)
+
+
+@pytest.mark.parametrize("b", BITS)
+@pytest.mark.parametrize("n", NS)
+def test_fused_build_kernel(cuda, n, b):
+    for cfg in CFGS[b]:
+        t = _inputs(n + b, n, 1, cfg, cuda)
+        paa, codes, keys = ops.summarize_and_key(t["x"], cfg)
+        torch.cuda.synchronize()
+        bps = S.breakpoints(b, device=cuda)
+        r_paa, r_codes, r_keys = ref.fused_build_ref(
+            t["x"], bps, segments=cfg.segments, bits=b)
+        _same(paa, r_paa)
+        _same(codes, r_codes)
+        _same(keys, r_keys)
+        c_paa, c_codes, c_keys = ops.summarize_and_key(t["x"].cpu(), cfg)
+        _same(paa, c_paa)
+        _same(codes, c_codes)
+        _same(keys, c_keys)
+
+
+def test_wrappers_count_launches(cuda):
+    cfg = S.SummaryConfig(64, 8, 4)
+    t = _inputs(5, 100, 4, cfg, cuda)
+    before = dict(loader.LAUNCHES)
+    ops.mindist_batch(t["q_paas"], t["codes"], cfg)
+    ops.batch_euclid_multi(t["q"], t["x"])
+    ops.summarize_and_key(t["x"], cfg)
+    ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
+                    torch.ones(4, device=cuda), cfg, k=1)
+    for name in ("mindist_batch", "batch_euclid", "fused_build",
+                 "scan_verify"):
+        assert loader.LAUNCHES[name] == before.get(name, 0) + 1

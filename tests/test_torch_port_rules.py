@@ -1,0 +1,92 @@
+"""The port's rules: it stands alone and runs where the caller says.
+
+* ``repro_torch`` imports with ``jax`` and the reference package ``repro``
+  blocked, and no source file names them;
+* a numpy input defaults to the CUDA device, so without one an entry point
+  raises instead of running on the CPU;
+* a tensor on a device with no kernel raises; there is no fallback to a
+  plain twin.
+"""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import SMOKE_INDEX
+from repro_torch.core import tree as T
+from repro_torch.kernels import ops
+
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
+           "repro_torch.kernels", "repro_torch.kernels.ops",
+           "repro_torch.kernels.loader", "repro_torch.query",
+           "repro_torch.obs", "repro_torch.data", "repro_torch.configs"]
+
+
+def test_imports_with_jax_and_reference_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_source_names_jax_or_the_reference():
+    bad = re.compile(r"^\s*(import jax|from jax|from repro\.|import repro\.|"
+                     r"from repro import|import repro\s*$)", re.M)
+    files = list(PKG.rglob("*.py"))
+    assert len(files) > 20
+    for f in files:
+        assert not bad.search(f.read_text()), f
+
+
+def test_numpy_build_defaults_to_cuda():
+    x = np.zeros((8, SMOKE_INDEX.series_len), np.float32)
+    if torch.cuda.is_available():
+        assert T.build(x, SMOKE_INDEX, leaf_size=4).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.build(x, SMOKE_INDEX, leaf_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.build(x, SMOKE_INDEX, leaf_size=4, device="cuda")
+    cols = {"keys": np.zeros((8, 1), np.uint32),
+            "codes": np.zeros((8, 8), np.uint8),
+            "paas": np.zeros((8, 8), np.float32),
+            "offsets": np.arange(8, dtype=np.int32), "raw": x}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.from_numpy(cols, series_len=64, segments=8, bits=4, leaf_size=4)
+    assert T.build(x, SMOKE_INDEX, leaf_size=4,
+                   device="cpu").device.type == "cpu"
+
+
+def test_device_without_kernel_raises():
+    """A tensor that is neither on the CPU nor on a CUDA device gets no
+    kernel and no twin."""
+    q = torch.zeros((2, 8), device="meta")
+    codes = torch.zeros((5, 8), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.mindist_batch(q, codes, SMOKE_INDEX)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.batch_euclid_multi(torch.zeros((2, 64), device="meta"),
+                               torch.zeros((5, 64), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.summarize_and_key(torch.zeros((5, 64), device="meta"),
+                              SMOKE_INDEX)
+
+
+def test_no_kernel_mode_override():
+    src = "\n".join(p.read_text() for p in PKG.rglob("*.py"))
+    assert "COCONUT_KERNEL_MODE" not in src
+    assert "os.environ" not in (PKG / "kernels" / "ops.py").read_text()
