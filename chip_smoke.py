@@ -11,14 +11,20 @@ path at the paper's deployment (``configs/coconut_paper.py``: L=256, w=16,
 b=8, leaf 2000) over 8,388,608 z-normalized random walks made on the card:
 the Coconut-Tree build, batched exact k-NN (Q=64, k=10) through the eager
 kernel chain and through the fused ``scan_verify`` kernel, single-query
-parity, and a brute-force check.  Every phase raises on failure.  The last
-lines are the kernels' JSON record, the card's name and power limit, and
+parity, and a brute-force check.  Then the storage path over the same
+walks: an on-disk segment bulk-loaded by external sort (``sax_summarize``
++ ``zorder`` per chunk, then a merge of the spills), its columns held
+against the tree's, exact k-NN straight off the file (``unpack_mindist``
+per leaf group), through the tiered leaf store, and ``tree.load`` of the
+file.  Every phase raises on failure.  The last lines are the kernels'
+JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -36,6 +42,9 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet; dense FP32 without tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+SEG_CHUNK = 65_536          # rows per host chunk fed to the external sort
+MERGE_BATCH = 2048          # rows read from each spill per merge round
+TIER_DEVICE_BYTES = 128 << 20   # holds every packed code block (N x 16 B)
 TIMED = 20                  # kernel launches per median
 PLAIN_TIMED = 3             # plain-twin calls per median
 FLUSH_BYTES = 256 << 20     # > the 50 MB L2: a cold cache between launches
@@ -97,7 +106,7 @@ def bound_ms(nbytes: float, flops: float):
 # phase 2: every kernel against its plain twin at ragged shapes
 # ---------------------------------------------------------------------------
 
-def kernel_phase(torch, np, S, ops, ref, dev) -> dict:
+def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
     """Max abs error per kernel (the tolerance is 0: kernels and twins do
     the same float operations in the same order, with no FMA)."""
     err = {}
@@ -164,6 +173,40 @@ def kernel_phase(torch, np, S, ops, ref, dev) -> dict:
                     bits=b)
                 for g, w_ in zip(got, want):
                     same("fused_build", g, w_)
+    # the storage path's kernels, also at b = 3, 5 (packed symbols that
+    # straddle bytes), each against its twin and against the kernels it
+    # must equal: sax_summarize + zorder == fused_build, unpack_mindist ==
+    # mindist_batch on the decoded codes
+    for b in (1, 3, 4, 5, 8):
+        for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)):
+            lower, upper = S.region_bounds(b, device=dev)
+            bps = S.breakpoints(b, device=dev)
+            scale = cfg.series_len / cfg.segments
+            for n in (257, 2037):
+                xt = torch.from_numpy(walks(np, rng, n, cfg.series_len)).to(dev)
+                paa, codes = launched(ops.sax_summarize(xt, cfg))
+                r_paa, r_codes = ref.sax_summarize_ref(
+                    xt, bps, segments=cfg.segments)
+                same("sax_summarize", paa, r_paa)
+                same("sax_summarize", codes, r_codes)
+                keys = launched(ops.zorder(codes, cfg))
+                same("zorder", keys, ref.zorder_ref(codes, w=cfg.segments,
+                                                    b=b))
+                for g, w_ in zip((paa, codes, keys),
+                                 ops.summarize_and_key(xt, cfg)):
+                    same("sax_summarize+zorder vs fused_build", g, w_)
+                packed = torch.from_numpy(
+                    pack_codes(codes.cpu().numpy(), b)).to(dev)
+                for nq in (1, 8, 64):
+                    q_paas = S.paa(torch.from_numpy(walks(
+                        np, rng, nq, cfg.series_len)).to(dev), cfg.segments)
+                    md = launched(ops.mindist_batch_packed(q_paas, packed,
+                                                           cfg))
+                    same("unpack_mindist", md, ref.mindist_batch_packed_ref(
+                        q_paas, packed, lower, upper, scale,
+                        w=cfg.segments, b=b))
+                    same("unpack_mindist vs mindist_batch", md,
+                         ops.mindist_batch(q_paas, codes, cfg))
     return err
 
 
@@ -229,6 +272,189 @@ def device_busy_ms(torch, fn) -> float:
     return total / 1e3
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the storage path over the same walks
+# ---------------------------------------------------------------------------
+
+def same_answers(np, a, b, what: str) -> None:
+    (d1, o1), (d2, o2) = a, b
+    check(np.array_equal(o1, o2), f"{what}: ids differ from the tree's")
+    check(np.array_equal(np.ascontiguousarray(d1, np.float32).view(np.uint32),
+                         np.ascontiguousarray(d2, np.float32).view(np.uint32)),
+          f"{what}: dists are not bitwise equal to the tree's")
+
+
+def split_line(stats) -> str:
+    tm = stats.timings
+    staged = sum(tm.get(s, 0.0) for s in ("seed", "bound", "verify", "merge"))
+    return (", ".join(f"{s}={tm.get(s, 0.0) / 1e3:.3f}"
+                      for s in ("plan", "seed", "bound", "verify", "merge"))
+            + f", host-other={(tm['scan'] - staged) / 1e3:.3f}, "
+            f"scan={tm['scan'] / 1e3:.3f}")
+
+
+def segment_phase(torch, np, x, tree, queries, tree_answer) -> dict:
+    """Bulk-load a segment from ``x`` by external sort, hold its columns
+    against ``tree``, search it (plain and tiered) and reload it; every
+    answer bitwise equal to ``tree_answer``.  The work directory goes at
+    the end, on failure too."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core import tree as T
+    from repro_torch.core.metrics import IOStats
+    from repro_torch.kernels import loader
+    from repro_torch.query import Partition, exact_knn
+    from repro_torch.storage import (TieredLeafStore, build_external,
+                                     exact_search_mmap)
+    from repro_torch.storage.packing import packed_code_width
+    cfg, leaf = INDEX, LEAF_SIZE
+    n, L, w = tree.n, cfg.series_len, cfg.segments
+    pw = packed_code_width(w, cfg.bits)
+    out = {"launches": {}}
+    work = ROOT / "build" / "segment_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        # spills and output each take about a row of every column
+        need = 2 * n * (L * 4 + w * 4 + pw + 8 + cfg.n_words * 4) + (1 << 30)
+        free = shutil.disk_usage(work).free
+        print(f"segment: {free / 2**30:.1f} GiB free on the build disk, "
+              f"{need / 2**30:.1f} GiB needed")
+        check(free >= need, f"segment: {free} bytes free on disk, {need} "
+                            "needed for the spills and the output")
+
+        # -- 8a: bulk load from host chunks ---------------------------------
+        chunks = (x[s:s + SEG_CHUNK].cpu().numpy()
+                  for s in range(0, n, SEG_CHUNK))
+        times = {}
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        seg = build_external(chunks, cfg, workdir=str(work),
+                             chunk_size=SEG_CHUNK, leaf_size=leaf,
+                             merge_batch=MERGE_BATCH, times=times)
+        build_s = time.perf_counter() - t0
+        out["launches"]["build"] = dict(loader.LAUNCHES)
+        for name in ("sax_summarize", "zorder"):
+            check(loader.LAUNCHES.get(name, 0) == -(-n // SEG_CHUNK),
+                  f"external sort launched {name} "
+                  f"{loader.LAUNCHES.get(name, 0)} times")
+        v2_row = cfg.n_words * 4 + w + w * 4 + 8 + L * 4
+        idx_v3 = (seg.columns["keys"].nbytes + seg.columns["codes"].nbytes) / n
+        print(f"segment build: {n} rows in {build_s:.2f} s (pass 1 "
+              f"{times['pass1']:.2f} s, pass 2 {times['pass2']:.2f} s); "
+              f"file {seg.nbytes} bytes = {seg.nbytes / n:.2f} B/row "
+              f"(v2 layout {v2_row} B/row); keys+codes {idx_v3:.2f} B/row "
+              f"(v2 {cfg.n_words * 4 + w} B/row); launches "
+              f"{out['launches']['build']}")
+
+        # -- 8b: the segment's columns == the tree's ------------------------
+        t0 = time.perf_counter()
+        dev = tree.device
+        step = 128 * leaf
+        for s in range(0, n, step):
+            e = min(s + step, n)
+            for name, got, want in (
+                    ("keys", seg.keys[s:e], tree.keys[s:e]),
+                    ("codes", seg.codes[s:e], tree.codes[s:e]),
+                    ("paas", seg.paas[s:e], tree.paas[s:e]),
+                    ("offsets", seg.offsets[s:e], tree.offsets[s:e]),
+                    ("raw", seg.raw[s:e], tree.raw[s:e])):
+                a = np.array(got)
+                if a.dtype == np.uint32:        # key words on disk
+                    a = a.astype(np.int64)
+                g = torch.from_numpy(a).to(dev)
+                if g.dtype == torch.float32:
+                    g, want = g.view(torch.int32), want.view(torch.int32)
+                check(torch.equal(g.to(want.dtype), want),
+                      f"segment {name} rows {s}:{e} differ from the tree's")
+        print(f"segment columns: keys, codes, paas, offsets and raw bitwise "
+              f"equal to the in-memory tree's (external sax_summarize + "
+              f"zorder vs fused_build) in {time.perf_counter() - t0:.2f} s")
+
+        # -- 8c: exact search off the file ----------------------------------
+        runs = []
+        for rep_i in range(3):
+            io = IOStats()
+            loader.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            d, o, st = exact_search_mmap(seg, queries, k=K, io=io)
+            runs.append((time.perf_counter() - t0, io, st,
+                         dict(loader.LAUNCHES)))
+            same_answers(np, (d, o), tree_answer, "segment search")
+        first_s, _, _, first_l = runs[0]
+        warm_s, io, st, lw = runs[-1]
+        out["launches"]["search"] = first_l
+        check(lw.get("unpack_mindist", 0) == st.leaves_scanned > 0,
+              f"unpack_mindist launched {lw.get('unpack_mindist', 0)} times "
+              f"for {st.leaves_scanned} scanned one-leaf groups")
+        print(f"segment search: Q={N_QUERIES} k={K}: {first_s:.3f} s first "
+              f"batch, {runs[1][0]:.3f} / {warm_s:.3f} s warm; answers "
+              f"bitwise equal to the tree's; launches {lw}")
+        print(f"segment split (s): {split_line(st)}")
+        print(f"segment io: {io.as_dict()}; scan_bytes={st.scan_bytes} "
+              f"leaves_scanned={st.leaves_scanned} "
+              f"leaves_pruned={st.leaves_pruned}")
+        busy = device_busy_ms(
+            torch, lambda: exact_search_mmap(seg, queries, k=K))
+        print(f"segment device busy (torch.profiler, kernel time in one "
+              f"batch): {busy:.3f} ms of {warm_s * 1e3:.1f} ms wall "
+              f"({100 * busy / (warm_s * 1e3):.2f}%)")
+
+        # -- 8d: tiered leaf store ------------------------------------------
+        tiers = TieredLeafStore(2 * TIER_DEVICE_BYTES,
+                                device_capacity_bytes=TIER_DEVICE_BYTES,
+                                promote_touches=1)
+        part = Partition.from_segment(seg, tiers=tiers)
+        # blocks are admitted on a miss and promoted on a later hit (the
+        # reference's policy): batch 1 fills the host tier, batch 2
+        # promotes, batch 3 runs from device-resident blocks only
+        tier_runs = []
+        for label in ("fill", "promote", "hot"):
+            before = tiers.stats()
+            loader.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            d, o, st_t = exact_knn([part], queries, cfg, k=K)
+            dt = time.perf_counter() - t0
+            after = tiers.stats()
+            same_answers(np, (d, o), tree_answer, f"tiered search ({label})")
+            delta = {k_: after[k_] - before[k_] for k_ in
+                     ("hits", "misses", "promotions", "bytes_saved")}
+            tier_runs.append((label, dt, delta, dict(loader.LAUNCHES)))
+            print(f"tiered {label}: {dt:.3f} s; {delta}; device_bytes "
+                  f"{after['device_bytes']}; split (s): {split_line(st_t)}")
+        _, hot_s, hot_delta, hot_l = tier_runs[-1]
+        check(hot_delta["misses"] == 0 and hot_delta["promotions"] == 0
+              and tiers.device_bytes == n * pw,
+              "tiered: the hot batch read code blocks that were not on "
+              f"the device ({hot_delta}, {tiers.device_bytes} B resident)")
+        out["launches"]["tiered_hot"] = hot_l
+        out["tiers"] = tiers.stats()
+
+        # inputs for the unpack_mindist timings: leaf 0's packed codes,
+        # read off the file and as a hot-tier block
+        li = 0
+        out["packed_host"] = np.array(
+            seg.columns["codes"][li * leaf:(li + 1) * leaf])
+        hot = tiers.cache.get((part.cache_token, "codes", li)).value
+        check(isinstance(hot, torch.Tensor) and hot.device == tree.device,
+              "tiered: leaf 0's code block is not on the tree's device")
+        out["packed_hot"] = hot
+
+        # -- 8e: round trip -------------------------------------------------
+        path = seg.path
+        seg.close()
+        t0 = time.perf_counter()
+        loaded = T.load(path)
+        load_s = time.perf_counter() - t0
+        d, o, _ = T.exact_search_batch(loaded, queries, k=K)
+        same_answers(np, (d, o), tree_answer, "tree.load")
+        print(f"round trip: tree.load in {load_s:.2f} s on "
+              f"{loaded.device}; answers bitwise equal to the tree's")
+        del loaded
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -248,6 +474,7 @@ def main() -> int:
     from repro_torch.data import series
     from repro_torch.kernels import loader, ops, ref
     from repro_torch.query import Partition, build_plan, exact_knn
+    from repro_torch.storage.packing import pack_codes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -273,7 +500,7 @@ def main() -> int:
 
     # -- 2: every kernel against its plain twin --------------------------------
     t0 = time.perf_counter()
-    errs = kernel_phase(torch, np, S, ops, ref, dev)
+    errs = kernel_phase(torch, np, S, ops, ref, pack_codes, dev)
     print(f"kernels: all equal to their plain twins (max abs err "
           f"{max(errs.values())}) in {time.perf_counter() - t0:.1f} s")
 
@@ -293,7 +520,6 @@ def main() -> int:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = dict(loader.LAUNCHES)
-    del x
     check(build_launches.get("fused_build", 0) > 0,
           f"build launched no fused_build: {build_launches}")
     check(not key_less(tree.keys[1:], tree.keys[:-1]).any(),
@@ -383,7 +609,14 @@ def main() -> int:
     print(f"brute force: ids agree ({int(diff.sum())} tie swaps), dists "
           f"within rtol 1e-5, in {time.perf_counter() - t0:.2f} s")
 
-    # -- 8: each kernel at the main path's shapes ----------------------------------
+    # -- 8: the storage path ---------------------------------------------------
+    t0 = time.perf_counter()
+    seg_out = segment_phase(torch, np, x, tree, queries, (e_d, e_o))
+    del x
+    torch.cuda.empty_cache()
+    print(f"segment phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 9: each kernel at the main path's shapes ----------------------------------
     timer = Timer(torch)
     q = queries.contiguous()
     q_paas = S.paa(q, cfg.segments)
@@ -406,6 +639,13 @@ def main() -> int:
     uniq = int(torch.unique(seed_idx).numel())
     sv = ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound, cfg, k=K)
     live_pairs, union = int(sv[2].sum()), int(sv[3])
+    chunk = tree.raw[:SEG_CHUNK].contiguous()      # one external-sort chunk
+    nc = chunk.shape[0]
+    c_codes = ops.sax_summarize(chunk, cfg)[1]
+    pk_host = torch.from_numpy(seg_out["packed_host"]).to(dev)
+    pk_hot = seg_out["packed_hot"]
+    npk, pw = pk_host.shape
+    card = 1 << cfg.bits
     for name, got, want in (
             ("mindist_batch", md, ref.mindist_batch_ref(
                 q_paas, codes_leaf, lower, upper, scale)),
@@ -416,7 +656,14 @@ def main() -> int:
             ("scan_verify", sv[0], ref.scan_verify_ref(
                 q, q_paas, codes_leaf, raw_leaf, lower, upper, bound,
                 torch.zeros(nl, dtype=torch.int32, device=dev), scale=scale,
-                k=K)[0])):
+                k=K)[0]),
+            ("sax_summarize", ops.sax_summarize(chunk, cfg)[0],
+             ref.sax_summarize_ref(chunk, bps, segments=w)[0]),
+            ("zorder", ops.zorder(c_codes, cfg),
+             ref.zorder_ref(c_codes, w=w, b=cfg.bits)),
+            ("unpack_mindist", ops.mindist_batch_packed(q_paas, pk_hot, cfg),
+             ref.mindist_batch_packed_ref(q_paas, pk_host, lower, upper,
+                                          scale, w=w, b=cfg.bits))):
         check(torch.equal(got, want), f"{name} differs at main-path shape")
     cases = {
         "mindist_batch": dict(
@@ -475,11 +722,56 @@ def main() -> int:
             library=None,
             bound=bound_ms(tree.n * (L * 4 + w * 5 + cfg.n_words * 8),
                            tree.n * (L + w * (1 + cfg.bits)))),
+        "sax_summarize": dict(
+            source="src/repro_torch/kernels/csrc/sax_summarize.cu",
+            replaces="src/repro/kernels/sax_summarize.py:47",
+            shape=f"N={nc} x L={L} (one external-sort chunk)",
+            fn=lambda: ops.sax_summarize(chunk, cfg),
+            plain=lambda: ref.sax_summarize_ref(chunk, bps, segments=w),
+            library=None,
+            bound=bound_ms(nc * (L * 4 + w * 5) + (card - 1) * 4,
+                           nc * (L + w * cfg.bits))),
+        "zorder": dict(
+            source="src/repro_torch/kernels/csrc/zorder.cu",
+            replaces="src/repro/kernels/zorder.py:45",
+            shape=f"N={nc} x w={w} codes -> {cfg.n_words} words",
+            fn=lambda: ops.zorder(c_codes, cfg),
+            plain=lambda: ref.zorder_ref(c_codes, w=w, b=cfg.bits),
+            library=None,
+            bound=bound_ms(nc * (w + cfg.n_words * 8), nc * w * cfg.bits)),
+        "unpack_mindist": dict(
+            source="src/repro_torch/kernels/csrc/unpack_mindist.cu",
+            replaces="src/repro/kernels/unpack_mindist.py:83",
+            shape=f"Q={nq} x N={npk} packed rows of {pw} B (one leaf "
+                  f"group copied from the host)",
+            fn=lambda: ops.mindist_batch_packed(q_paas, pk_host, cfg),
+            plain=lambda: ref.mindist_batch_packed_ref(
+                q_paas, pk_host, lower, upper, scale, w=w, b=cfg.bits),
+            library=None,
+            # the executor copies the rows in just before: warm in L2
+            cold=False,
+            bound=bound_ms(npk * pw + nq * w * 4 + 2 * card * 4
+                           + nq * npk * 4, nq * npk * (7 * w + 1))),
+        "unpack_mindist_hot": dict(
+            source="src/repro_torch/kernels/csrc/unpack_mindist.cu",
+            replaces="src/repro/kernels/unpack_mindist.py:83",
+            shape=f"Q={nq} x N={npk} packed rows of {pw} B (a hot-tier "
+                  f"block resident on the card)",
+            fn=lambda: ops.mindist_batch_packed(q_paas, pk_hot, cfg),
+            plain=lambda: ref.mindist_batch_packed_ref(
+                q_paas, pk_hot, lower, upper, scale, w=w, b=cfg.bits),
+            library=None,
+            bound=bound_ms(npk * pw + nq * w * 4 + 2 * card * 4
+                           + nq * npk * 4, nq * npk * (7 * w + 1))),
     }
     launches = {}
-    for phase in (build_launches, eager_launches, fused_launches):
+    for phase in (build_launches, eager_launches, fused_launches,
+                  *seg_out["launches"].values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
+    launches["unpack_mindist_hot"] = \
+        seg_out["launches"]["tiered_hot"].get("unpack_mindist", 0)
+    errs["unpack_mindist_hot"] = errs["unpack_mindist"]
     record = []
     for name, cs in cases.items():
         cold = cs.get("cold", True)
@@ -510,7 +802,7 @@ def main() -> int:
           f"cold]: {ms1:.4f} ms (plain {plain1:.4f} ms, bound {b1:.4f} ms "
           f"by {by1})")
 
-    # -- 9: the record and the result ------------------------------------------------
+    # -- 10: the record and the result -----------------------------------------------
     print(json.dumps({"kernels": record}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

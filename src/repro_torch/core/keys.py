@@ -28,6 +28,7 @@ __all__ = [
     "deinterleave_key",
     "lexsort_keys",
     "lexsort_keys_np",
+    "count_below_np",
     "key_extremes_np",
     "key_less",
     "key_less_equal",
@@ -162,6 +163,20 @@ def lexsort_keys_np(keys: np.ndarray) -> np.ndarray:
     keys = np.asarray(keys)
     return np.lexsort(tuple(keys[:, k]
                             for k in range(keys.shape[1] - 1, -1, -1)))
+
+
+def count_below_np(sorted_keys: np.ndarray, key: np.ndarray, *,
+                   inclusive: bool = False) -> int:
+    """Rows of the sorted ``[m, n_words]`` block lexicographically below
+    ``key`` (or equal to it when ``inclusive``): the host-side insertion
+    point of :func:`searchsorted_keys` (side ``"left"`` / ``"right"``),
+    in one vectorized pass over a block small enough to scan."""
+    lt = np.zeros(len(sorted_keys), bool)
+    eq = np.ones(len(sorted_keys), bool)
+    for w in range(sorted_keys.shape[1]):
+        lt |= eq & (sorted_keys[:, w] < key[w])
+        eq &= sorted_keys[:, w] == key[w]
+    return int(np.count_nonzero(lt | eq if inclusive else lt))
 
 
 def key_extremes_np(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -20,7 +20,10 @@ The columns are tensors on one device.  :func:`build` runs on the card
 unless the caller asks for the CPU: a tensor input stays on its own device,
 any other input goes to ``"cuda"`` by default, and with no CUDA device the
 call raises unless ``device="cpu"`` is passed.  On the card the
-summarization is the ``fused_build`` kernel; on the CPU its plain twin.
+summarization is the ``fused_build`` kernel (``zorder`` for a build given
+precomputed codes, ``sax_summarize`` + ``zorder`` for the seed probe's
+query keys); on the CPU their plain twins.  :func:`save` / :func:`load`
+persist a tree as one on-disk segment file (:mod:`repro_torch.storage`).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from .metrics import IOStats
 
 __all__ = ["CoconutTree", "build", "approx_search", "exact_search",
            "approx_search_batch", "exact_search_batch", "merge_trees",
-           "SearchStats", "from_numpy", "to_numpy"]
+           "SearchStats", "from_numpy", "to_numpy", "save", "load"]
 
 _LATER = ("budgeted and approximate search come with the port of "
           "query/approx.py (ROADMAP queue A item 3)")
@@ -163,7 +166,7 @@ def build(raw,
     else:
         paas = _as(paas, torch.float32, dev)
         codes = _as(codes, torch.uint8, dev)
-        keys = S.invsax_keys(codes, cfg)
+        keys = ops.zorder(codes, cfg)
     order = K.lexsort_keys(keys)
     ts = _as(timestamps, torch.int64, dev)[order] if timestamps is not None \
         else None
@@ -200,9 +203,8 @@ def _seed_index(tree: CoconutTree, queries, radius_leaves: int = 1
     around each query's z-order insertion point (clipped to the tree)."""
     cfg = tree.cfg
     q = _queries_on(tree, queries)
-    q_codes = S.sax_encode(S.paa(q, cfg.segments), cfg.bits)
-    q_keys = K.interleave_codes(q_codes, w=cfg.segments, b=cfg.bits)
-    pos = K.searchsorted_keys(tree.keys, q_keys)                   # [Q]
+    _, q_codes = ops.sax_summarize(q, cfg)
+    pos = K.searchsorted_keys(tree.keys, ops.zorder(q_codes, cfg))  # [Q]
     span = 2 * radius_leaves * tree.leaf_size
     start = (pos - span // 2).clamp(0, max(tree.n - span, 0))
     idx = start[:, None] + torch.arange(span, device=tree.device)[None, :]
@@ -422,3 +424,29 @@ def to_numpy(tree: CoconutTree) -> Dict[str, Optional[np.ndarray]]:
         v = getattr(tree, name)
         out[name] = None if v is None else v.cpu().numpy().astype(np_dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Persistence (delegates to the storage engine)
+# ---------------------------------------------------------------------------
+
+def save(tree: CoconutTree, path: str, *,
+         io: Optional[IOStats] = None) -> None:
+    """Persist the tree as one self-describing on-disk segment file."""
+    from ..storage.segment import write_segment
+    write_segment(path, tree, io=io)
+
+
+def load(path: str, device=None) -> CoconutTree:
+    """Reopen a segment file written by :func:`save` (or by the reference
+    package) as a ``CoconutTree`` on ``device`` (the card by default).
+
+    The columns are already sorted on disk, so searches on the loaded tree
+    are identical to the tree that was saved.
+    """
+    from ..storage.segment import Segment
+    seg = Segment.open(path)
+    try:
+        return seg.to_tree(device=device)
+    finally:
+        seg.close()

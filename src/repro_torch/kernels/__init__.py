@@ -11,5 +11,11 @@ counts them):
                      verification + per-query top-k
   * fused_build    — raw series -> PAA, SAX codes and z-order keys in one
                      pass (the Coconut-Tree build)
+  * sax_summarize  — raw series -> PAA and SAX codes (external-sort pass 1,
+                     seed-probe query codes)
+  * zorder         — SAX codes -> z-order keys (external-sort pass 1, seed
+                     probes, builds from precomputed codes)
+  * unpack_mindist — batched lower bound over bit-packed (format v3) code
+                     rows (the scan of an on-disk segment)
 """
 from . import ops, ref  # noqa: F401

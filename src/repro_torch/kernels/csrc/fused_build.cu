@@ -15,11 +15,13 @@
 // segment in index order and divides by the segment length (the order of the
 // PAA in core/summarization.py), and finds its code by a branch-free binary
 // search over the 2^b - 1 breakpoints (the count of breakpoints <= PAA, i.e.
-// searchsorted side="right").  Finally one thread per (row, key word) builds
-// the word from the row's codes: global bit p = i * w + j (MSB first) is bit
-// b - 1 - i of segment j.  The summation order differs from jnp.mean's only if
-// XLA reorders it, so a PAA may differ from the reference's by an ulp and flip
-// a code whose PAA lies within an ulp of a breakpoint.
+// searchsorted side="right") -- summarize_tile in common.cuh, which the
+// sax_summarize kernel runs too.  Finally one thread per (row, key word)
+// builds the word from the row's codes (zorder_word, shared with the zorder
+// kernel): global bit p = i * w + j (MSB first) is bit b - 1 - i of segment j.
+// The summation order differs from jnp.mean's only if XLA reorders it, so a
+// PAA may differ from the reference's by an ulp and flip a code whose PAA lies
+// within an ulp of a breakpoint.
 // FMA contraction: none (see common.cuh).
 #include "common.cuh"
 
@@ -39,48 +41,18 @@ fused_build_kernel(const float* __restrict__ x, const float* __restrict__ bps,
   float* s_bps = smem;                          // [card - 1]
   float* s_x = s_bps + (card - 1);              // [rows, w, sl + 1]
   int* s_codes = reinterpret_cast<int*>(s_x + rows * w * (sl + 1));  // [rows, w]
-  const int tid = threadIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * rows;
   const int tr = static_cast<int>(min(static_cast<long long>(rows), n - row0));
 
-  for (int i = tid; i < card - 1; i += kThreads) s_bps[i] = bps[i];
-  const float* src = x + row0 * L;
-  for (int i = tid; i < tr * L; i += kThreads) {
-    const int r = i / L;
-    const int l = i - r * L;
-    const int s = l / sl;
-    s_x[(r * w + s) * (sl + 1) + (l - s * sl)] = src[i];
-  }
-  __syncthreads();
+  for (int i = threadIdx.x; i < card - 1; i += kThreads) s_bps[i] = bps[i];
+  summarize_tile<kThreads>(x, s_bps, s_x, s_codes, row0, tr, L, w, card, paa,
+                           codes);
 
-  for (int p = tid; p < tr * w; p += kThreads) {
-    const float* seg = s_x + p * (sl + 1);
-    float acc = 0.f;
-    for (int e = 0; e < sl; ++e) acc = __fadd_rn(acc, seg[e]);
-    const float v = __fdiv_rn(acc, static_cast<float>(sl));
-    int pos = 0;
-    for (int step = card >> 1; step > 0; step >>= 1)
-      if (s_bps[pos + step - 1] <= v) pos += step;
-    paa[row0 * w + p] = v;
-    codes[row0 * w + p] = static_cast<uint8_t>(pos);
-    s_codes[p] = pos;
-  }
-  __syncthreads();
-
-  const int total = w * bits;
-  for (int t = tid; t < tr * nw; t += kThreads) {
+  for (int t = threadIdx.x; t < tr * nw; t += kThreads) {
     const int r = t / nw;
     const int kw = t - r * nw;
-    unsigned word = 0;
-    for (int b = 0; b < 32; ++b) {
-      const int p = kw * 32 + b;
-      if (p >= total) break;
-      const int i = p / w;
-      const int j = p - i * w;
-      word |= ((static_cast<unsigned>(s_codes[r * w + j]) >> (bits - 1 - i)) & 1u)
-              << (31 - b);
-    }
-    keys[(row0 + r) * nw + kw] = static_cast<long long>(word);
+    keys[(row0 + r) * nw + kw] =
+        static_cast<long long>(zorder_word(s_codes + r * w, 1, kw, w, bits));
   }
 }
 

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "coconut_scan_verify_tiles_for": [_I],
     "coconut_scan_verify": [_P] * 15 + [_I] * 6 + [_F, _P],
     "coconut_fused_build": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _P],
+    "coconut_sax_summarize": [_P] * 4 + [_LL, _I, _I, _I, _I, _P],
+    "coconut_zorder": [_P, _P, _LL, _I, _I, _I, _P],
+    "coconut_unpack_mindist": [_P] * 5 + [_I, _LL, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -17,10 +17,14 @@ from .batch_euclid import batch_euclid as _euclid_cross
 from .batch_euclid import batch_euclid_gather as _euclid_gather
 from .fused_build import fused_build as _fused_build
 from .mindist_batch import mindist_batch as _mindist_batch
+from .sax_summarize import sax_summarize as _sax_summarize
 from .scan_verify import scan_verify as _scan_verify
+from .unpack_mindist import unpack_mindist as _unpack_mindist
+from .zorder import zorder as _zorder
 
-__all__ = ["mindist", "mindist_batch", "batch_euclid", "batch_euclid_multi",
-           "scan_verify", "summarize_and_key"]
+__all__ = ["mindist", "mindist_batch", "mindist_batch_packed",
+           "batch_euclid", "batch_euclid_multi", "scan_verify",
+           "sax_summarize", "zorder", "summarize_and_key"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +55,18 @@ def mindist_batch(q_paas: torch.Tensor, codes: torch.Tensor,
     lower, upper, _ = _tables(cfg.bits, codes.device)
     return _mindist_batch(_f32(q_paas), codes.to(torch.uint8).contiguous(),
                           lower, upper, cfg.series_len / cfg.segments)
+
+
+def mindist_batch_packed(q_paas: torch.Tensor, packed: torch.Tensor,
+                         cfg: S.SummaryConfig) -> torch.Tensor:
+    """Batched lower bound over format-v3 *packed* code rows:
+    ``[Q, w] x [N, ceil(w*b/8)] -> [Q, N]``, bit-equal to
+    :func:`mindist_batch` on the decoded rows (the unpack is exact and the
+    bound shares its routine), so answers never depend on which ran."""
+    lower, upper, _ = _tables(cfg.bits, packed.device)
+    return _unpack_mindist(_f32(q_paas), packed.to(torch.uint8).contiguous(),
+                           lower, upper, cfg.series_len / cfg.segments,
+                           w=cfg.segments, b=cfg.bits)
 
 
 def batch_euclid(query: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
@@ -93,6 +109,19 @@ def scan_verify(queries: torch.Tensor, q_paas: torch.Tensor,
                         codes.to(torch.uint8).contiguous(), _f32(raw),
                         lower, upper, _f32(bound), dead,
                         scale=cfg.series_len / cfg.segments, k=k)
+
+
+def sax_summarize(x: torch.Tensor, cfg: S.SummaryConfig):
+    """Raw ``[N, L]`` -> (paa f32 ``[N, w]``, codes uint8 ``[N, w]``): the
+    first construction stage (the second is :func:`zorder`)."""
+    _, _, bps = _tables(cfg.bits, x.device)
+    return _sax_summarize(_f32(x), bps, segments=cfg.segments, bits=cfg.bits)
+
+
+def zorder(codes: torch.Tensor, cfg: S.SummaryConfig) -> torch.Tensor:
+    """SAX codes ``[N, w]`` -> z-order keys ``[N, n_words]`` int64."""
+    return _zorder(codes.to(torch.uint8).contiguous(), w=cfg.segments,
+                   b=cfg.bits)
 
 
 def summarize_and_key(x: torch.Tensor, cfg: S.SummaryConfig):

@@ -16,6 +16,10 @@ Summation orders (shared with ``csrc/common.cuh``):
 * mindist — per pair, the ``w`` segment terms are added in index order,
   then scaled by ``L / w``.
 * PAA — each segment summed in index order, then divided by its length.
+
+Packed code rows (segment format v3): symbol ``j`` of a row sits MSB first
+at bit ``j*b`` of the row's ``ceil(w*b/8)`` bytes and is read through the
+two-byte window at byte ``j*b // 8``, with a zero byte past the row's end.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ from ..core import keys as K
 from ..core import summarization as S
 
 __all__ = ["ED_LANES", "ed_pairs", "mindist_batch_ref", "batch_euclid_ref",
-           "batch_euclid_gather_ref", "scan_verify_ref", "fused_build_ref"]
+           "batch_euclid_gather_ref", "scan_verify_ref", "fused_build_ref",
+           "sax_summarize_ref", "zorder_ref", "unpack_codes_ref",
+           "mindist_batch_packed_ref"]
 
 ED_LANES = 32
 # elements per [Q, rows, L] or [Q, rows, w] intermediate: rows are taken in
@@ -132,20 +138,60 @@ def scan_verify_ref(queries: torch.Tensor, q_paas: torch.Tensor,
     return d, idx, counts, union
 
 
-def fused_build_ref(x: torch.Tensor, bps: torch.Tensor, *,
-                    segments: int, bits: int):
-    """Raw ``[N, L]`` f32 -> (paa ``[N, w]`` f32, codes ``[N, w]`` uint8,
-    keys ``[N, n_words]`` int64): each code is the number of breakpoints
-    <= its PAA value, the key the bit interleave of the codes."""
+def sax_summarize_ref(x: torch.Tensor, bps: torch.Tensor, *,
+                      segments: int):
+    """Raw ``[N, L]`` f32 -> (paa ``[N, w]`` f32, codes ``[N, w]`` uint8):
+    each code is the number of breakpoints <= its PAA value."""
     n = x.shape[0]
     p = torch.empty((n, segments), dtype=torch.float32, device=x.device)
     codes = torch.empty((n, segments), dtype=torch.uint8, device=x.device)
-    keys = torch.empty((n, K.n_key_words(segments, bits)), dtype=torch.int64,
-                       device=x.device)
-    step = _row_block(1, segments * bits)
+    step = _row_block(1, x.shape[1])
     for s in range(0, n, step):
         p[s:s + step] = S.paa(x[s:s + step], segments)
-        c = torch.searchsorted(bps, p[s:s + step], right=True)
-        codes[s:s + step] = c
-        keys[s:s + step] = K.interleave_codes(c, w=segments, b=bits)
-    return p, codes, keys
+        codes[s:s + step] = torch.searchsorted(bps, p[s:s + step], right=True)
+    return p, codes
+
+
+def zorder_ref(codes: torch.Tensor, *, w: int, b: int) -> torch.Tensor:
+    """SAX codes ``[N, w]`` -> z-order keys ``[N, n_words]`` int64."""
+    n = codes.shape[0]
+    keys = torch.empty((n, K.n_key_words(w, b)), dtype=torch.int64,
+                       device=codes.device)
+    step = _row_block(1, w * b)
+    for s in range(0, n, step):
+        keys[s:s + step] = K.interleave_codes(codes[s:s + step], w=w, b=b)
+    return keys
+
+
+def unpack_codes_ref(packed: torch.Tensor, *, w: int, b: int
+                     ) -> torch.Tensor:
+    """Packed rows ``[N, ceil(w*b/8)]`` uint8 -> codes ``[N, w]`` uint8
+    (see the module docstring for the bit layout)."""
+    if packed.ndim != 2 or packed.shape[1] != -(-(w * b) // 8):
+        raise ValueError(f"packed rows {tuple(packed.shape)} do not hold "
+                         f"w={w} symbols of b={b} bits")
+    padded = torch.nn.functional.pad(packed.to(torch.int64), (0, 1))
+    bit = torch.arange(w, device=packed.device) * b
+    window = (padded[:, bit // 8] << 8) | padded[:, bit // 8 + 1]
+    out = (window >> (16 - bit % 8 - b)) & ((1 << b) - 1)
+    return out.to(torch.uint8)
+
+
+def mindist_batch_packed_ref(q_paas: torch.Tensor, packed: torch.Tensor,
+                             lower: torch.Tensor, upper: torch.Tensor,
+                             scale: float, *, w: int, b: int
+                             ) -> torch.Tensor:
+    """Batched squared iSAX lower bound over packed rows: the rows are
+    decoded, then bounded exactly as :func:`mindist_batch_ref` does, so
+    packed == unpacked holds bit for bit."""
+    return mindist_batch_ref(q_paas, unpack_codes_ref(packed, w=w, b=b),
+                             lower, upper, scale)
+
+
+def fused_build_ref(x: torch.Tensor, bps: torch.Tensor, *,
+                    segments: int, bits: int):
+    """Raw ``[N, L]`` f32 -> (paa ``[N, w]`` f32, codes ``[N, w]`` uint8,
+    keys ``[N, n_words]`` int64): :func:`sax_summarize_ref` then
+    :func:`zorder_ref`, the two stages the kernel fuses."""
+    p, codes = sax_summarize_ref(x, bps, segments=segments)
+    return p, codes, zorder_ref(codes, w=segments, b=bits)

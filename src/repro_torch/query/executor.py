@@ -4,7 +4,11 @@ Sorted partitions are scanned leaf-granularly (surviving leaves only,
 cheapest fence bound first — skip-sequential SIMS).  The host structure is
 the reference's: per leaf group one device-to-host copy of the bound, a
 host-side live mask, one verification launch over the rows any query
-kept, and per-query :class:`KnnPool` updates.
+kept, and per-query :class:`KnnPool` updates.  A segment partition reads
+each group's rows off its mmap (or its tier cache) and copies them to
+its device first; a format-v3 segment's code rows go to the
+``unpack_mindist`` kernel in their packed form when the bound is the
+default one.
 
 The default chain runs on the partition's device through
 :mod:`repro_torch.kernels.ops`: ``mindist_batch`` lower bounds (marked as
@@ -12,7 +16,9 @@ the default bound, ``_coconut_default_mindist``) and ``batch_euclid_multi``
 verification; seed distances use the gathered form of the same ED routine,
 so answer *distances* are bit-identical whichever path computed them.
 ``scan_mode="kernel"`` opts into the fused ``scan_verify`` kernel (one
-pass: bound + masked verify + top-k on the device).
+pass: bound + masked verify + top-k on the device) on device-backed
+partitions; on a segment the fusion would stream every pruned row's raw
+bytes off disk, so segments keep the eager chain, as in the reference.
 
 Stage timings (``SearchStats.timings``, milliseconds): ``plan``, ``seed``
 (probe, distances and pool updates), ``bound`` (code gather, bound launch
@@ -72,7 +78,7 @@ def _seed_sorted(entry: ScanEntry, queries_t: torch.Tensor, pool: KnnPool,
             alive = ts >= entry.ts_min
     offs_all = part.report_ids()
     idx0_t = part.seed_window(queries_t, radius_leaves=radius_leaves, io=io)
-    d0 = _host(part.seed_distances(queries_t, idx0_t))
+    d0 = _host(part.seed_distances(queries_t, idx0_t, io=io))
     idx0 = _host(idx0_t)
     if alive is not None:
         d0 = np.where(alive[idx0], d0, np.inf).astype(np.float32)
@@ -122,8 +128,16 @@ def _scan_leaf_group(entry: ScanEntry, queries_t, q_paas_t,
         # fusion), so the group charges every row's raw bytes
         return live_pairs, nbytes + len(row_idx) * raw_bytes
     t0 = time.perf_counter()
-    codes_blk = part.codes_rows(row_idx, io=io)
-    md = _host(mindist_fn(q_paas_t, codes_blk))              # [Q, B]
+    # packed fast path: a v3 segment's stored-form rows go straight to the
+    # unpack_mindist kernel when the bound is the default one (no host
+    # decode; hot tier blocks are already on the device).  Both bounds give
+    # the same bits, so answers never depend on which one ran.
+    if part.is_packed and getattr(mindist_fn, "_coconut_default_mindist",
+                                  False):
+        md = _host(ops.mindist_batch_packed(
+            q_paas_t, part.codes_rows_packed(row_idx, io=io), part.cfg))
+    else:
+        md = _host(mindist_fn(q_paas_t, part.codes_rows(row_idx, io=io)))
     stats.add_timing("bound", _ms_since(t0))
     live = md < pool.bound()[:, None]
     if alive is not None:
@@ -137,7 +151,7 @@ def _scan_leaf_group(entry: ScanEntry, queries_t, q_paas_t,
     t0 = time.perf_counter()
     with _span("verify", rows=len(block)) as vsp:
         rows = part.series_rows(block, io=io)
-        if io is not None:
+        if part.backend == "device" and io is not None:
             io.seq_read(len(block))
         dd = _host(ops.batch_euclid_multi(queries_t, rows))  # [Q, B]
         stats.add_timing("verify", _ms_since(t0))
@@ -263,8 +277,8 @@ def _verify_fused(entry: ScanEntry, queries_t, q_paas_t, codes_blk,
 
 def _default_mindist(cfg: S.SummaryConfig):
     fn = lambda qp, c: ops.mindist_batch(qp, c, cfg)  # noqa: E731
-    # marks the bound as the default kernel (a later packed-code scan is
-    # bit-equal to it; injected bounds opt out)
+    # marks the bound as the default kernel: the packed-code scan is
+    # bit-equal to it, injected bounds opt out
     fn._coconut_default_mindist = True
     return fn
 
@@ -285,8 +299,8 @@ def execute(plan: ScanPlan, queries, *, k: int = 1,
     partition's device); defaults to :func:`repro_torch.kernels.ops.
     mindist_batch`.
     ``scan_mode``: None (the eager chain) or ``"kernel"`` (the fused
-    ``scan_verify``: the CUDA kernel on a CUDA partition, its plain twin on
-    a CPU one).
+    ``scan_verify`` on device-backed partitions: the CUDA kernel on a CUDA
+    partition, its plain twin on a CPU one; segments stay eager).
     """
     if scan_mode not in SCAN_MODES:
         raise ValueError(f"scan_mode must be one of {SCAN_MODES}, "
@@ -322,7 +336,8 @@ def execute(plan: ScanPlan, queries, *, k: int = 1,
             live_pairs += _scan_sorted(
                 entry, queries_t, q_paas_t, k, pool, stats,
                 radius_leaves=radius_leaves, chunk=chunk, io=io,
-                mindist_fn=part_mindist, fused=scan_mode == "kernel",
+                mindist_fn=part_mindist,
+                fused=scan_mode == "kernel" and part.backend == "device",
                 label=label)
             sp.set(leaves_scanned=stats.leaves_scanned - b_scanned,
                    leaves_pruned=stats.leaves_pruned - b_pruned,

@@ -7,7 +7,11 @@ the CPU.  Tolerance: none — kernels and twins perform the same float32
 operations in the same order with no fused multiply-add (see
 ``csrc/common.cuh``), so floats must agree bit for bit; ints exactly.
 Shapes: N not a multiple of any block, Q in {1, 8, 64}, b in {1, 4, 8},
-k in {1, 10}.  ``chip_smoke.py``'s kernel phase runs the same checks.
+k in {1, 10}; the construction and packed-bound kernels also at b in
+{3, 5}, where packed symbols straddle bytes.  Cross-kernel identities:
+``sax_summarize`` + ``zorder`` == ``fused_build`` and ``unpack_mindist``
+== ``mindist_batch`` on the decoded codes, bit for bit.
+``chip_smoke.py``'s kernel phase runs the same checks.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.core import summarization as S
 from repro_torch.kernels import loader, ops, ref
+from repro_torch.storage.packing import pack_codes
 
 NS = (1, 257, 2000 + 37)
 QS = (1, 8, 64)
@@ -169,6 +174,58 @@ def test_fused_build_kernel(cuda, n, b):
         _same(keys, c_keys)
 
 
+PACK_BITS = (1, 3, 4, 5, 8)
+
+
+@pytest.mark.parametrize("b", PACK_BITS)
+@pytest.mark.parametrize("n", NS)
+def test_sax_summarize_and_zorder_kernels(cuda, n, b):
+    for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)):
+        t = _inputs(n + 5 * b, n, 1, cfg, cuda)
+        paa, codes = ops.sax_summarize(t["x"], cfg)
+        keys = ops.zorder(codes, cfg)
+        torch.cuda.synchronize()
+        bps = S.breakpoints(b, device=cuda)
+        r_paa, r_codes = ref.sax_summarize_ref(t["x"], bps,
+                                               segments=cfg.segments)
+        _same(paa, r_paa)
+        _same(codes, r_codes)
+        _same(keys, ref.zorder_ref(codes, w=cfg.segments, b=b))
+        c_paa, c_codes = ops.sax_summarize(t["x"].cpu(), cfg)
+        _same(paa, c_paa)
+        _same(codes, c_codes)
+        _same(keys, ops.zorder(codes.cpu(), cfg))
+        # the two construction stages equal the fused kernel bit for bit
+        f_paa, f_codes, f_keys = ops.summarize_and_key(t["x"], cfg)
+        _same(paa, f_paa)
+        _same(codes, f_codes)
+        _same(keys, f_keys)
+
+
+@pytest.mark.parametrize("b", PACK_BITS)
+@pytest.mark.parametrize("nq", QS)
+@pytest.mark.parametrize("n", NS)
+def test_unpack_mindist_kernel(cuda, n, nq, b):
+    for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)):
+        t = _inputs(n + 7 * nq + b, n, nq, cfg, cuda)
+        packed = torch.from_numpy(pack_codes(t["codes"].cpu().numpy(),
+                                             b)).to(cuda)
+        got = ops.mindist_batch_packed(t["q_paas"], packed, cfg)
+        torch.cuda.synchronize()
+        lower, upper = S.region_bounds(b, device=cuda)
+        scale = cfg.series_len / cfg.segments
+        _same(got, ref.mindist_batch_packed_ref(
+            t["q_paas"], packed, lower, upper, scale, w=cfg.segments, b=b))
+        _same(got, ops.mindist_batch_packed(t["q_paas"].cpu(), packed.cpu(),
+                                            cfg))
+        # packed == unpacked: the same bits as mindist_batch on the codes
+        _same(got, ops.mindist_batch(t["q_paas"], t["codes"], cfg))
+        # a view into the middle of a packed column (no row of padding)
+        if n > 2:
+            _same(ops.mindist_batch_packed(t["q_paas"], packed[1:-1], cfg),
+                  got[:, 1:-1])
+
+
 def test_wrappers_count_launches(cuda):
     cfg = S.SummaryConfig(64, 8, 4)
     t = _inputs(5, 100, 4, cfg, cuda)
@@ -178,6 +235,11 @@ def test_wrappers_count_launches(cuda):
     ops.summarize_and_key(t["x"], cfg)
     ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
                     torch.ones(4, device=cuda), cfg, k=1)
+    _, codes = ops.sax_summarize(t["x"], cfg)
+    ops.zorder(codes, cfg)
+    packed = torch.from_numpy(pack_codes(codes.cpu().numpy(), 4)).to(cuda)
+    ops.mindist_batch_packed(t["q_paas"], packed, cfg)
     for name in ("mindist_batch", "batch_euclid", "fused_build",
-                 "scan_verify"):
+                 "scan_verify", "sax_summarize", "zorder",
+                 "unpack_mindist"):
         assert loader.LAUNCHES[name] == before.get(name, 0) + 1

@@ -6,6 +6,8 @@ Both packages get the same numpy inputs.  Tolerances: bounds and distances
 at rtol 1e-6 (the port fixes its own float32 summation order, which may
 differ from XLA's); indices, counts and the union exact; codes and keys
 exact except rows whose reference PAA lies within 4 ulp of a breakpoint.
+Within the port, the packed-code bound equals the bound on the decoded
+codes bit for bit.
 """
 from __future__ import annotations
 
@@ -20,7 +22,11 @@ from repro.kernels.batch_euclid import batch_euclid_pallas
 from repro.kernels.fused_build import fused_build_pallas
 from repro.kernels.mindist_batch import mindist_batch_pallas
 from repro.kernels.mindist_scan import mindist_pallas
+from repro.kernels.sax_summarize import sax_summarize_pallas
 from repro.kernels.scan_verify import scan_verify_pallas
+from repro.kernels.unpack_mindist import unpack_mindist_batch_pallas
+from repro.kernels.zorder import zorder_pallas
+from repro.storage.packing import pack_codes
 from repro_torch.core import summarization as S
 from repro_torch.kernels import loader, ops, ref
 
@@ -110,6 +116,10 @@ def test_twins_count_no_launches():
     ops.mindist_batch(torch.from_numpy(q_paas), torch.from_numpy(codes), cfg)
     ops.batch_euclid_multi(torch.from_numpy(q), torch.from_numpy(x))
     ops.summarize_and_key(torch.from_numpy(x), cfg)
+    _, c = ops.sax_summarize(torch.from_numpy(x), cfg)
+    ops.zorder(c, cfg)
+    ops.mindist_batch_packed(torch.from_numpy(q_paas),
+                             torch.from_numpy(pack_codes(codes, 4)), cfg)
     assert dict(loader.LAUNCHES) == before
 
 
@@ -160,3 +170,70 @@ def test_fused_build_twin_vs_pallas(L, w, b):
     np.testing.assert_array_equal(keys.numpy()[~near],
                                   p_keys[~near].astype(np.int64))
     assert codes.dtype == torch.uint8 and keys.dtype == torch.int64
+
+
+PACK_SHAPES = [(64, 8, b) for b in (1, 3, 4, 5)] + [(256, 16, 8)]
+
+
+def _near_breakpoint(paa, b):
+    bps = RS._breakpoints_np(b)
+    return (np.abs(paa[..., None] - bps)
+            <= 4 * np.spacing(np.abs(bps))).any(axis=(-1, -2))
+
+
+@pytest.mark.parametrize("L,w,b", PACK_SHAPES)
+def test_sax_summarize_twin_vs_pallas(L, w, b):
+    x = _walks(401, L, seed=10 + b)
+    p_paa, p_codes = (np.asarray(a) for a in sax_summarize_pallas(
+        jnp.asarray(x), RS.breakpoints(b), segments=w, block_n=128,
+        interpret=True))
+    paa, codes = ops.sax_summarize(torch.from_numpy(x),
+                                   S.SummaryConfig(L, w, b))
+    np.testing.assert_allclose(paa.numpy(), p_paa, rtol=1e-6)
+    near = _near_breakpoint(p_paa, b)
+    np.testing.assert_array_equal(codes.numpy()[~near], p_codes[~near])
+    assert codes.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("L,w,b", PACK_SHAPES)
+def test_zorder_twin_vs_pallas(L, w, b):
+    codes = np.random.default_rng(b).integers(0, 1 << b, (300, w))
+    want = np.asarray(zorder_pallas(jnp.asarray(codes, jnp.int32), w=w, b=b,
+                                    block_n=128, interpret=True))
+    got = ops.zorder(torch.from_numpy(codes.astype(np.uint8)),
+                     S.SummaryConfig(L, w, b))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(RR.zorder_ref(jnp.asarray(codes), w=w, b=b))
+        .astype(np.int64))
+
+
+@pytest.mark.parametrize("nq", [1, 8, 64])
+@pytest.mark.parametrize("L,w,b", PACK_SHAPES)
+def test_unpack_mindist_twin_vs_pallas(nq, L, w, b):
+    x, q, codes, q_paas = _case(301, nq, L, w, b, seed=nq + b)
+    packed = pack_codes(codes.astype(np.uint8), b)
+    lo, hi = _finite_bounds(b)
+    pallas = np.asarray(unpack_mindist_batch_pallas(
+        jnp.asarray(q_paas), jnp.asarray(packed), lo, hi, w=w, b=b,
+        scale=L / w, block_n=128, interpret=True))
+    cfg = S.SummaryConfig(L, w, b)
+    got = ops.mindist_batch_packed(torch.from_numpy(q_paas),
+                                   torch.from_numpy(packed), cfg)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-6)
+    # packed == unpacked within the port, bit for bit
+    unpacked = ops.mindist_batch(torch.from_numpy(q_paas),
+                                 torch.from_numpy(codes.astype(np.uint8)),
+                                 cfg)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  unpacked.numpy().view(np.uint32))
+    lower, upper = S.region_bounds(b)
+    np.testing.assert_array_equal(
+        ref.mindist_batch_packed_ref(
+            torch.from_numpy(q_paas), torch.from_numpy(packed), lower, upper,
+            L / w, w=w, b=b).numpy().view(np.uint32),
+        ref.mindist_batch_ref(torch.from_numpy(q_paas),
+                              torch.from_numpy(codes.astype(np.uint8)),
+                              lower, upper, L / w).numpy().view(np.uint32))
+    assert np.all(got.numpy() <= ((x[None] - q[:, None]) ** 2).sum(-1)
+                  * (1 + 1e-5) + 1e-5)

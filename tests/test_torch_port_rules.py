@@ -26,8 +26,12 @@ from repro_torch.kernels import ops
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.kernels", "repro_torch.kernels.ops",
-           "repro_torch.kernels.loader", "repro_torch.query",
-           "repro_torch.obs", "repro_torch.data", "repro_torch.configs"]
+           "repro_torch.kernels.loader", "repro_torch.kernels.sax_summarize",
+           "repro_torch.kernels.zorder", "repro_torch.kernels.unpack_mindist",
+           "repro_torch.query", "repro_torch.storage",
+           "repro_torch.storage.segment", "repro_torch.storage.tiers",
+           "repro_torch.storage.external_sort", "repro_torch.obs",
+           "repro_torch.data", "repro_torch.configs"]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -84,6 +88,13 @@ def test_device_without_kernel_raises():
     with pytest.raises(ValueError, match="no kernel"):
         ops.summarize_and_key(torch.zeros((5, 64), device="meta"),
                               SMOKE_INDEX)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.sax_summarize(torch.zeros((5, 64), device="meta"), SMOKE_INDEX)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.zorder(codes, SMOKE_INDEX)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.mindist_batch_packed(q, torch.zeros((5, 4), dtype=torch.uint8,
+                                                device="meta"), SMOKE_INDEX)
 
 
 def test_no_kernel_mode_override():
