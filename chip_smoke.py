@@ -47,6 +47,7 @@ MERGE_BATCH = 2048          # rows read from each spill per merge round
 TIER_DEVICE_BYTES = 128 << 20   # holds every packed code block (N x 16 B)
 TIMED = 20                  # kernel launches per median
 PLAIN_TIMED = 3             # plain-twin calls per median
+PROFILED_CALLS = 200        # scan_verify calls per operations-per-call profile
 FLUSH_BYTES = 256 << 20     # > the 50 MB L2: a cold cache between launches
 
 
@@ -106,6 +107,21 @@ def bound_ms(nbytes: float, flops: float):
 # phase 2: every kernel against its plain twin at ragged shapes
 # ---------------------------------------------------------------------------
 
+def max_abs_err(torch, a, b) -> float:
+    """Largest |a - b| over the entries where ``b`` is finite; the
+    non-finite entries must sit in the same places."""
+    torch.cuda.synchronize()
+    a, b = a.cpu(), b.cpu()
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if a.dtype.is_floating_point:
+        fin = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), fin), "non-finite entries differ")
+        return float((a[fin].double() - b[fin].double()).abs().max()) \
+            if fin.any() else 0.0
+    return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
 def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
     """Max abs error per kernel (the tolerance is 0: kernels and twins do
     the same float operations in the same order, with no FMA)."""
@@ -116,18 +132,7 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
         return out
 
     def same(name, a, b):
-        torch.cuda.synchronize()
-        a, b = a.cpu(), b.cpu()
-        check(a.shape == b.shape and a.dtype == b.dtype,
-              f"{name}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
-        if a.dtype.is_floating_point:
-            fin = torch.isfinite(b)
-            check(torch.equal(torch.isfinite(a), fin),
-                  f"{name}: non-finite entries differ")
-            e = float((a[fin].double() - b[fin].double()).abs().max()) \
-                if fin.any() else 0.0
-        else:
-            e = float((a.long() - b.long()).abs().max()) if a.numel() else 0
+        e = max_abs_err(torch, a, b)
         err[name] = max(err.get(name, 0.0), e)
         check(e == 0, f"{name}: kernel differs from its plain twin by {e}")
 
@@ -250,26 +255,26 @@ def brute_force(torch, tree, queries, k):
             tree.offsets[torch.gather(i, 1, order)].cpu().numpy())
 
 
-def device_busy_ms(torch, fn) -> float:
-    """Sum of CUDA kernel time in one run of ``fn`` (torch.profiler);
-    prints the largest entries."""
+def device_profile(torch, fn, reps: int = 1, top: int = 8):
+    """Device time of ``reps`` runs of ``fn`` (torch.profiler): returns
+    (total ms, [(ms, count, name)] for every device operation: kernels,
+    fills, copies), largest first, and prints the ``top`` entries."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    total = 0.0
     rows = []
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0))
-            total += t
-            rows.append((t, e.count, e.key))
+            rows.append((t / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    for t, c, key in rows[:8]:
-        print(f"  profile {t / 1e3:10.3f} ms {c:6d}x  {key[:90]}")
-    return total / 1e3
+    for t, c, key in rows[:top]:
+        print(f"  profile {t:10.3f} ms {c:6d}x  {key[:90]}")
+    return sum(r[0] for r in rows), rows
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +398,8 @@ def segment_phase(torch, np, x, tree, queries, tree_answer) -> dict:
         print(f"segment io: {io.as_dict()}; scan_bytes={st.scan_bytes} "
               f"leaves_scanned={st.leaves_scanned} "
               f"leaves_pruned={st.leaves_pruned}")
-        busy = device_busy_ms(
-            torch, lambda: exact_search_mmap(seg, queries, k=K))
+        busy = device_profile(
+            torch, lambda: exact_search_mmap(seg, queries, k=K))[0]
         print(f"segment device busy (torch.profiler, kernel time in one "
               f"batch): {busy:.3f} ms of {warm_s * 1e3:.1f} ms wall "
               f"({100 * busy / (warm_s * 1e3):.2f}%)")
@@ -566,28 +571,52 @@ def main() -> int:
           f"candidates={e_stats2.candidates} "
           f"pruned_frac={e_stats2.pruned_frac:.6f} "
           f"leaves_touched={e_stats2.leaves_touched}")
-    busy = device_busy_ms(
-        torch, lambda: T.exact_search_batch(tree, queries, k=K))
+    busy = device_profile(
+        torch, lambda: T.exact_search_batch(tree, queries, k=K))[0]
     print(f"eager device busy (torch.profiler, kernel time in one batch): "
           f"{busy:.3f} ms of {eager_s * 1e3:.1f} ms wall "
           f"({100 * busy / (eager_s * 1e3):.2f}%)")
 
     # -- 5: fused search ---------------------------------------------------------
     part = Partition.from_tree(tree)
+
+    def fused():
+        return exact_knn([part], queries, cfg, k=K, scan_mode="kernel")
+
     loader.LAUNCHES.clear()
     t0 = time.perf_counter()
-    f_d, f_o, f_stats = exact_knn([part], queries, cfg, k=K,
-                                  scan_mode="kernel")
+    f_d, f_o, f_stats = fused()
     fused_s = time.perf_counter() - t0
     fused_launches = dict(loader.LAUNCHES)
-    check(fused_launches.get("scan_verify", 0) > 0,
+    sv_calls = fused_launches.get("scan_verify", 0)
+    check(sv_calls > 0,
           f"fused search launched no scan_verify: {fused_launches}")
     check(np.array_equal(f_o, e_o), "fused ids differ from eager")
     check(np.array_equal(f_d.view(np.uint32), e_d.view(np.uint32)),
           "fused dists are not bitwise equal to eager")
-    print(f"fused: {fused_s:.3f} s per batch; launches {fused_launches}; "
-          f"equal to eager (ids, dist bits); leaves_scanned="
-          f"{f_stats.leaves_scanned} candidates={f_stats.candidates}")
+    t0 = time.perf_counter()
+    f_d2, f_o2, f_stats2 = fused()
+    fused_warm_s = time.perf_counter() - t0
+    check(np.array_equal(f_o2, f_o)
+          and np.array_equal(f_d2.view(np.uint32), f_d.view(np.uint32)),
+          "two fused runs disagree")
+    print(f"fused: {fused_s:.3f} s first batch, {fused_warm_s:.3f} s warm; "
+          f"launches {fused_launches}; equal to eager (ids, dist bits); "
+          f"leaves_scanned={f_stats.leaves_scanned} "
+          f"candidates={f_stats.candidates} (eager {e_stats.candidates})")
+    print(f"fused split (s): {split_line(f_stats2)}")
+    busy, prof_rows = device_profile(torch, fused)
+    sv_rows = [r for r in prof_rows if "scan_verify" in r[2]]
+    sv_ms = sum(r[0] for r in sv_rows)
+    sv_kernels = sum(r[1] for r in sv_rows)
+    print(f"fused device busy (torch.profiler, device time in one batch): "
+          f"{busy:.3f} ms of {fused_warm_s * 1e3:.1f} ms wall "
+          f"({100 * busy / (fused_warm_s * 1e3):.2f}%); scan_verify kernels "
+          + (f"{sv_ms:.3f} ms in {sv_kernels} launches over {sv_calls} calls "
+             f"({sv_kernels / sv_calls:.2f} kernels per call, "
+             f"{1e3 * sv_ms / sv_calls:.2f} us per call)" if sv_kernels else
+             f"not measured (the profiler recorded none of {sv_calls} "
+             f"calls' kernels)"))
 
     # -- 6: single == batch --------------------------------------------------------
     for qi in (0, 1, N_QUERIES // 2, N_QUERIES - 1):
@@ -639,13 +668,67 @@ def main() -> int:
     uniq = int(torch.unique(seed_idx).numel())
     sv = ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound, cfg, k=K)
     live_pairs, union = int(sv[2].sum()), int(sv[3])
+    # the tightest bound the batch reaches: each query's final k-th distance
+    bound_t = torch.from_numpy(np.ascontiguousarray(e_d[:, K - 1])).to(dev)
+    sv_t = ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound_t, cfg,
+                           k=K)
+    live_pairs_t, union_t = int(sv_t[2].sum()), int(sv_t[3])
+    # queries with a live pair: only their raw rows need to be read
+    live_q, live_q_t = int((sv[2] > 0).sum()), int((sv_t[2] > 0).sum())
+    per_q = sv[2].cpu().numpy()
+    live_md = md < bound[:, None]
+    densest = max(int(live_md[:, s:s + 256].sum(1).max())
+                  for s in range(0, nl, 256))
+    print(f"scan_verify inputs (leaf {first}, {nl} rows): seed bound "
+          f"{live_pairs} live pairs, {union} live rows, live rows per query "
+          f"min {per_q.min()} median {int(np.median(per_q))} max "
+          f"{per_q.max()}, densest (256-row tile, query) {densest}; tight "
+          f"bound {live_pairs_t} live pairs, {union_t} live rows")
+    no_dead = torch.zeros(nl, dtype=torch.int32, device=dev)
+    card = 1 << cfg.bits
+
+    def sv_bound(live_rows, live_queries, pairs):
+        """scan_verify's least work: the leaf's codes, the live rows and
+        the raw rows of the queries with a live pair, once each; every
+        query's PAA, bound and count; the two breakpoint tables; the
+        outputs.  The bound for every (query, row), the ED of the live
+        pairs."""
+        return bound_ms(nl * w + (live_rows + live_queries) * L * 4
+                        + nq * (w + 2) * 4 + 2 * card * 4 + nq * K * 8 + 4,
+                        nq * nl * (7 * w + 1) + 3 * L * pairs)
+    for label, b_ in (("seed", bound), ("tight", bound_t)):
+        print(f"scan_verify device operations per call ({label} bound, "
+              f"torch.profiler over {PROFILED_CALLS} calls):")
+        _, sv_prof = device_profile(
+            torch, lambda: ops.scan_verify(q, q_paas, codes_leaf, raw_leaf,
+                                           b_, cfg, k=K), reps=PROFILED_CALLS)
+        # the profiler may drop some calls' events, or all of them: count
+        # calls by the kernel's own launches, and report nothing when it
+        # saw none (a diagnostic; the launch counters are the check)
+        calls = max((r[1] for r in sv_prof if "scan_verify" in r[2]),
+                    default=0)
+        if not calls:
+            print(f"  not measured: the profiler recorded none of the "
+                  f"{PROFILED_CALLS} calls' kernels")
+            continue
+        per_call = sum(r[1] for r in sv_prof) / calls
+        print(f"  {per_call:.2f} device operations per call over {calls} "
+              f"calls seen: " + "; ".join(
+                  f"{r[2][:48]} {r[1] / calls:.2f}/call {1e3 * r[0] / r[1]:.2f}"
+                  f" us each" for r in sv_prof))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound, cfg, k=K)
+    torch.cuda.synchronize()
+    print(f"scan_verify host time: {(time.perf_counter() - t0) / 200 * 1e6:.1f}"
+          f" us per call (200 calls in a row, seed bound)")
     chunk = tree.raw[:SEG_CHUNK].contiguous()      # one external-sort chunk
     nc = chunk.shape[0]
     c_codes = ops.sax_summarize(chunk, cfg)[1]
     pk_host = torch.from_numpy(seg_out["packed_host"]).to(dev)
     pk_hot = seg_out["packed_hot"]
     npk, pw = pk_host.shape
-    card = 1 << cfg.bits
     for name, got, want in (
             ("mindist_batch", md, ref.mindist_batch_ref(
                 q_paas, codes_leaf, lower, upper, scale)),
@@ -653,10 +736,13 @@ def main() -> int:
              ref.batch_euclid_ref(q, verify_rows)),
             ("batch_euclid_gather", seed_d, ref.batch_euclid_gather_ref(
                 q, tree.raw, seed_idx)),
-            ("scan_verify", sv[0], ref.scan_verify_ref(
+            *(("scan_verify", g, w_) for g, w_ in zip(sv, ref.scan_verify_ref(
                 q, q_paas, codes_leaf, raw_leaf, lower, upper, bound,
-                torch.zeros(nl, dtype=torch.int32, device=dev), scale=scale,
-                k=K)[0]),
+                no_dead, scale=scale, k=K))),
+            *(("scan_verify_tight", g, w_) for g, w_ in zip(
+                sv_t, ref.scan_verify_ref(
+                    q, q_paas, codes_leaf, raw_leaf, lower, upper, bound_t,
+                    no_dead, scale=scale, k=K))),
             ("sax_summarize", ops.sax_summarize(chunk, cfg)[0],
              ref.sax_summarize_ref(chunk, bps, segments=w)[0]),
             ("zorder", ops.zorder(c_codes, cfg),
@@ -665,6 +751,9 @@ def main() -> int:
              ref.mindist_batch_packed_ref(q_paas, pk_host, lower, upper,
                                           scale, w=w, b=cfg.bits))):
         check(torch.equal(got, want), f"{name} differs at main-path shape")
+        # phase 2's ragged sweep and the main-path shapes; the tight case
+        # is measured here only
+        errs[name] = max(errs.get(name, 0.0), max_abs_err(torch, got, want))
     cases = {
         "mindist_batch": dict(
             source="src/repro_torch/kernels/csrc/mindist_batch.cu",
@@ -701,17 +790,28 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/scan_verify.cu",
             replaces="src/repro/kernels/scan_verify.py:130",
             shape=f"Q={nq} x N={nl} rows, k={K}, {live_pairs} live pairs, "
-                  f"{union} live rows",
+                  f"{union} live rows, {live_q} queries live",
             fn=lambda: ops.scan_verify(q, q_paas, codes_leaf, raw_leaf,
                                        bound, cfg, k=K),
             plain=lambda: ref.scan_verify_ref(
                 q, q_paas, codes_leaf, raw_leaf, lower, upper, bound,
-                torch.zeros(nl, dtype=torch.int32, device=dev), scale=scale,
-                k=K),
+                no_dead, scale=scale, k=K),
             library=None,
-            bound=bound_ms(nl * w + union * L * 4 + nq * (L + w + 3) * 4
-                           + nq * K * 8,
-                           nq * nl * (7 * w + 1) + 3 * L * live_pairs)),
+            bound=sv_bound(union, live_q, live_pairs)),
+        "scan_verify_tight": dict(
+            source="src/repro_torch/kernels/csrc/scan_verify.cu",
+            replaces="src/repro/kernels/scan_verify.py:130",
+            shape=f"Q={nq} x N={nl} rows, k={K}, the batch's final k-th "
+                  f"distances as bound: {live_pairs_t} live pairs, "
+                  f"{union_t} live rows, {live_q_t} queries live",
+            launches_of="scan_verify",
+            fn=lambda: ops.scan_verify(q, q_paas, codes_leaf, raw_leaf,
+                                       bound_t, cfg, k=K),
+            plain=lambda: ref.scan_verify_ref(
+                q, q_paas, codes_leaf, raw_leaf, lower, upper, bound_t,
+                no_dead, scale=scale, k=K),
+            library=None,
+            bound=sv_bound(union_t, live_q_t, live_pairs_t)),
         "fused_build": dict(
             source="src/repro_torch/kernels/csrc/fused_build.cu",
             replaces="src/repro/kernels/fused_build.py:57",
@@ -772,6 +872,9 @@ def main() -> int:
     launches["unpack_mindist_hot"] = \
         seg_out["launches"]["tiered_hot"].get("unpack_mindist", 0)
     errs["unpack_mindist_hot"] = errs["unpack_mindist"]
+    # the same kernel as scan_verify, timed under the batch's tightest bound:
+    # its launches are scan_verify's (the record says so in launches_of)
+    launches["scan_verify_tight"] = launches.get("scan_verify", 0)
     record = []
     for name, cs in cases.items():
         cold = cs.get("cold", True)
@@ -784,7 +887,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": cs["source"],
             "replaces": cs["replaces"], "launches": launches.get(name, 0),
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            **({"launches_of": cs["launches_of"]} if "launches_of" in cs
+               else {})})
         print(f"kernel {name} [{cs['shape']}, L2 "
               f"{'cold' if cold else 'warm'}]: {ms:.4f} ms (plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library "

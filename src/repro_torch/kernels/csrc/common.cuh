@@ -77,17 +77,20 @@ __device__ __forceinline__ void load_codes(const uint8_t* __restrict__ codes,
 // Squared iSAX lower bound of one (query, row) pair: the w segment terms
 // (max(lb - q, 0) + max(q - ub, 0))^2 added in index order, times L / w.
 // lower/upper are the [2^b] region tables with -inf / +inf at the ends.
+// The query's PAA is qpaa[j * stride] (a stride lets a kernel keep PAAs
+// query-minor in shared memory, so a warp's lanes read adjacent words).
 template <int W>
 __device__ __forceinline__ float mindist_row(const int* c,
                                              const float* __restrict__ qpaa,
                                              const float* __restrict__ lower,
                                              const float* __restrict__ upper,
-                                             int w, float scale) {
+                                             int w, float scale,
+                                             int stride = 1) {
   const int n = W > 0 ? W : w;
   float acc = 0.f;
 #pragma unroll
   for (int j = 0; j < n; ++j) {
-    const float q = qpaa[j];
+    const float q = qpaa[j * stride];
     const float below = fmaxf(__fsub_rn(lower[c[j]], q), 0.f);
     const float above = fmaxf(__fsub_rn(q, upper[c[j]]), 0.f);
     const float d = __fadd_rn(below, above);

@@ -53,8 +53,7 @@ _SIGNATURES = {
     "coconut_mindist_batch": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _F, _P],
     "coconut_euclid_cross": [_P, _P, _P, _I, _LL, _I, _P],
     "coconut_euclid_gather": [_P, _P, _P, _P, _I, _LL, _I, _P],
-    "coconut_scan_verify_tiles_for": [_I],
-    "coconut_scan_verify": [_P] * 15 + [_I] * 6 + [_F, _P],
+    "coconut_scan_verify": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 4 + [_P, _P],
     "coconut_fused_build": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _P],
     "coconut_sax_summarize": [_P] * 4 + [_LL, _I, _I, _I, _I, _P],
     "coconut_zorder": [_P, _P, _LL, _I, _I, _I, _P],

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import summarization as S
 from repro_torch.kernels import loader, ops, ref
+from repro_torch.kernels.scan_verify import launch_plan
 from repro_torch.storage.packing import pack_codes
 
 NS = (1, 257, 2000 + 37)
@@ -153,6 +154,106 @@ def test_scan_verify_rejects_large_k(cuda):
     with pytest.raises(ValueError):
         ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
                         torch.ones(2, device=cuda), cfg, k=65)
+
+
+def _scan_case(seed, n, nq, L, dev, w=16):
+    cfg = S.SummaryConfig(L, w, 8)
+    t = _inputs(seed, n, nq, cfg, dev)
+    ed = ops.batch_euclid_multi(t["q"], t["x"])
+    return cfg, t, ed
+
+
+def _scan_same_as_twin(cfg, t, bound, k, dead=None):
+    """scan_verify on the card == its twin on the card and on the CPU, bit
+    for bit (dists, rows, counts, union); returns the card's outputs."""
+    got = ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"], bound,
+                          cfg, k=k, dead=dead)
+    torch.cuda.synchronize()
+    lower, upper = S.region_bounds(cfg.bits, device=bound.device)
+    n = t["x"].shape[0]
+    want = ref.scan_verify_ref(
+        t["q"], t["q_paas"], t["codes"], t["x"], lower, upper, bound,
+        torch.zeros(n, dtype=torch.int32, device=bound.device)
+        if dead is None else dead.to(torch.int32),
+        scale=cfg.series_len / cfg.segments, k=k)
+    cpu = ops.scan_verify(t["q"].cpu(), t["q_paas"].cpu(), t["codes"].cpu(),
+                          t["x"].cpu(), bound.cpu(), cfg, k=k,
+                          dead=None if dead is None else dead.cpu())
+    for a, b_, c in zip(got, want, cpu):
+        _same(a, b_)
+        _same(a, c)
+    return got
+
+
+@pytest.mark.parametrize("k", (1, 10, 64))
+@pytest.mark.parametrize("L", (64, 256, 1024))
+@pytest.mark.parametrize("nq", (1, 8, 64, 100))
+@pytest.mark.parametrize("n", NS)
+def test_scan_verify_launch_shapes(cuda, n, nq, L, k):
+    """Every launch plan the wrapper makes: one tile (n=1) to a full grid,
+    one to four query mask words (Q=100 crosses 64), query chunks looped in
+    the block (L=1024 at Q >= 64 does not fit shared memory at once)."""
+    cfg, t, ed = _scan_case(n * 7 + nq + L + k, n, nq, L, cuda)
+    if L == 1024 and nq >= 64:
+        assert launch_plan(nq, n, L, 16, min(k, n), 256).chunks > 1
+    dead = torch.from_numpy(
+        np.random.default_rng(n + k).random(n) < 0.2).to(cuda)
+    bound = ed.median(dim=1).values
+    for dd in (None, dead):
+        _scan_same_as_twin(cfg, t, bound, min(k, n), dd)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_scan_verify_every_row_or_none_live(cuda, n):
+    cfg, t, ed = _scan_case(n + 11, n, 64, 256, cuda)
+    k = min(10, n)
+    d, i, c, u = _scan_same_as_twin(
+        cfg, t, torch.full((64,), float("inf"), device=cuda), k)
+    assert int(u) == n and (c == n).all()
+    _same(d, torch.sort(ed, dim=1, stable=True).values[:, :k])
+    d, i, c, u = _scan_same_as_twin(cfg, t, torch.zeros(64, device=cuda), k)
+    assert torch.isinf(d).all() and (i == -1).all()
+    assert int(u) == 0 and (c == 0).all()
+    # every row dead under an infinite bound: nothing is live either
+    d, i, c, u = _scan_same_as_twin(
+        cfg, t, torch.full((64,), float("inf"), device=cuda), k,
+        dead=torch.ones(n, dtype=torch.bool, device=cuda))
+    assert int(u) == 0 and (i == -1).all()
+
+
+def test_scan_verify_workspace_across_shapes(cuda):
+    """Calls in a row at shapes with other grids, chunks and k reuse (and
+    grow) the workspace; a stale list, count or ticket would show."""
+    cases = [(2037, 64, 256, 10), (257, 100, 1024, 64), (1, 8, 64, 1),
+             (2037, 64, 256, 10), (2000, 1, 256, 64), (257, 100, 1024, 64)]
+    for j, (n, nq, L, k) in enumerate(cases):
+        cfg, t, ed = _scan_case(j % 3, n, nq, L, cuda)
+        _scan_same_as_twin(cfg, t, ed.median(dim=1).values, min(k, n))
+
+
+def test_scan_verify_repeatable(cuda):
+    """The blocks finish in no fixed order; the answer must not care."""
+    cfg, t, ed = _scan_case(5, 2037, 64, 256, cuda)
+    bound = ed.quantile(0.7, dim=1)
+    first = _scan_same_as_twin(cfg, t, bound, 10)
+    for _ in range(20):
+        again = ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
+                                bound, cfg, k=10)
+        for a, b_ in zip(again, first):
+            _same(a, b_)
+
+
+@pytest.mark.parametrize("L", (64, 256, 100))
+def test_scan_verify_dists_are_batch_euclid_bits(cuda, L):
+    """A live pair's distance has the bits of batch_euclid on that pair
+    (the eager chain), so fused and eager answers agree bitwise."""
+    cfg, t, ed = _scan_case(L, 2037, 64, L, cuda, w=4)
+    for bound in (torch.full((64,), float("inf"), device=cuda),
+                  ed.median(dim=1).values):
+        d, i, _, _ = _scan_same_as_twin(cfg, t, bound, 64)
+        fin = i >= 0
+        _same(d[fin], ops.batch_euclid_multi(t["q"], t["x"],
+                                             idx=i.clamp(min=0))[fin])
 
 
 @pytest.mark.parametrize("b", BITS)
