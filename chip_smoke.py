@@ -16,8 +16,12 @@ walks: an on-disk segment bulk-loaded by external sort (``sax_summarize``
 + ``zorder`` per chunk, then a merge of the spills), its columns held
 against the tree's, exact k-NN straight off the file (``unpack_mindist``
 per leaf group), through the tiered leaf store, and ``tree.load`` of the
-file.  Every phase raises on failure.  The last lines are the kernels'
-JSON record, the card's name and power limit, and
+file.  Then every kernel is timed at the main path's shapes (the cross
+form of ``batch_euclid`` at the densest leaf group, at the eager batch's
+median rows per launch and at Q=1) beside its bound, its twin and, where
+one exists, a PyTorch library call.  Every phase raises on failure.  The
+last lines are the kernels' JSON record, the card's name and power
+limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
 """
@@ -39,9 +43,12 @@ GEN_CHUNK = 1 << 20
 N_QUERIES = 64
 K = 10
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet; dense FP32 without tensor cores)
+# H100 SXM peaks.  Memory: the data sheet's 3.35 TB/s.  FP32: the data
+# sheet's 67 TFLOP/s counts a fused multiply-add as two operations; the
+# kernels forbid FMA contraction (csrc/common.cuh), so each sub, mul and add
+# is one instruction, at 128 lanes x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+FP32_OPS_PER_S = 33.5e12
 SEG_CHUNK = 65_536          # rows per host chunk fed to the external sort
 MERGE_BATCH = 2048          # rows read from each spill per merge round
 TIER_DEVICE_BYTES = 128 << 20   # holds every packed code block (N x 16 B)
@@ -96,9 +103,11 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, ops: float):
+    """The least time for moving ``nbytes`` and issuing ``ops`` FP32
+    instructions, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS_PER_S
+    t_ops = ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -178,6 +187,20 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
                     bits=b)
                 for g, w_ in zip(got, want):
                     same("fused_build", g, w_)
+    # the cross form at lengths that are not a multiple of 32 and span
+    # several shared-memory chunks, through the 16-byte (L=300) and the
+    # 4-byte (L=301) copies; the gathered form gives the same bits
+    for L in (300, 301):
+        for n in (257, 2037):
+            xt = torch.from_numpy(walks(np, rng, n, L)).to(dev)
+            for nq in (1, 17, 64):
+                qt = torch.from_numpy(walks(np, rng, nq, L)).to(dev)
+                ed = launched(ops.batch_euclid_multi(qt, xt))
+                same("batch_euclid", ed, ref.batch_euclid_ref(qt, xt))
+                idx = torch.from_numpy(rng.integers(0, n, (nq, 33))).to(dev)
+                same("batch_euclid_gather",
+                     launched(ops.batch_euclid_multi(qt, xt, idx=idx)),
+                     torch.gather(ed, 1, idx))
     # the storage path's kernels, also at b = 3, 5 (packed symbols that
     # straddle bytes), each against its twin and against the kernels it
     # must equal: sax_summarize + zorder == fused_build, unpack_mindist ==
@@ -544,10 +567,24 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     # -- 4: eager batched exact search -----------------------------------------
+    # the first batch records the rows of every cross-form launch (the
+    # executor verifies one leaf group's union-live rows per launch)
+    cross_rows = []
+    euclid_multi = ops.batch_euclid_multi
+
+    def counted_euclid(queries_, series_, idx=None):
+        if idx is None:
+            cross_rows.append(series_.shape[0])
+        return euclid_multi(queries_, series_, idx=idx)
+
     loader.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    e_d, e_o, e_stats = T.exact_search_batch(tree, queries, k=K)
-    eager_cold_s = time.perf_counter() - t0
+    ops.batch_euclid_multi = counted_euclid
+    try:
+        t0 = time.perf_counter()
+        e_d, e_o, e_stats = T.exact_search_batch(tree, queries, k=K)
+        eager_cold_s = time.perf_counter() - t0
+    finally:
+        ops.batch_euclid_multi = euclid_multi
     eager_launches = dict(loader.LAUNCHES)
     for name in ("mindist_batch", "batch_euclid", "batch_euclid_gather"):
         check(eager_launches.get(name, 0) > 0,
@@ -571,11 +608,27 @@ def main() -> int:
           f"candidates={e_stats2.candidates} "
           f"pruned_frac={e_stats2.pruned_frac:.6f} "
           f"leaves_touched={e_stats2.leaves_touched}")
-    busy = device_profile(
-        torch, lambda: T.exact_search_batch(tree, queries, k=K))[0]
+    cr = np.asarray(cross_rows)
+    # the sequence, for tools/compare_cross.py
+    (ROOT / "build").mkdir(exist_ok=True)
+    np.save(ROOT / "build" / "eager_cross_rows.npy", cr)
+    median_rows = max(1, int(np.median(cr)))
+    print(f"eager cross launches: {len(cr)} calls ({eager_launches.get('batch_euclid', 0)} "
+          f"counted by the wrapper); rows per call min {cr.min()} median "
+          f"{np.median(cr):g} p90 {np.percentile(cr, 90):g} max {cr.max()}, "
+          f"{int(cr.sum())} rows in all")
+    busy, e_prof = device_profile(
+        torch, lambda: T.exact_search_batch(tree, queries, k=K))
     print(f"eager device busy (torch.profiler, kernel time in one batch): "
           f"{busy:.3f} ms of {eager_s * 1e3:.1f} ms wall "
           f"({100 * busy / (eager_s * 1e3):.2f}%)")
+    x_prof = [r for r in e_prof if "euclid_cross" in r[2]]
+    print("eager batch_euclid cross kernels (torch.profiler, one batch): "
+          + (f"{sum(r[0] for r in x_prof):.3f} ms in "
+             f"{sum(r[1] for r in x_prof)} launches "
+             f"({1e3 * sum(r[0] for r in x_prof) / sum(r[1] for r in x_prof):.2f}"
+             f" us each)" if x_prof else "not measured (the profiler "
+             "recorded none)"))
 
     # -- 5: fused search ---------------------------------------------------------
     part = Partition.from_tree(tree)
@@ -664,6 +717,9 @@ def main() -> int:
     nq, L, w = N_QUERIES, cfg.series_len, cfg.segments
     nl = codes_leaf.shape[0]
     nv = verify_rows.shape[0]
+    # the cross form's typical launch: the eager batch's median row count
+    nm = min(median_rows, nl)
+    median_rows_t = raw_leaf[:nm]
     c = seed_idx.shape[1]
     uniq = int(torch.unique(seed_idx).numel())
     sv = ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound, cfg, k=K)
@@ -687,15 +743,23 @@ def main() -> int:
     no_dead = torch.zeros(nl, dtype=torch.int32, device=dev)
     card = 1 << cfg.bits
 
+    def euclid_bound(nq_, n_):
+        """The cross form's least work: the queries and rows read once, the
+        [Q, N] output written once; per pair, L subs and L muls and the
+        L - 1 adds that sum L squares (each lane's first add is onto 0.f
+        and changes no bits; the lanes' L - 32 adds and the fold's 31)."""
+        return bound_ms((nq_ + n_) * L * 4 + nq_ * n_ * 4,
+                        nq_ * n_ * (3 * L - 1))
+
     def sv_bound(live_rows, live_queries, pairs):
         """scan_verify's least work: the leaf's codes, the live rows and
         the raw rows of the queries with a live pair, once each; every
         query's PAA, bound and count; the two breakpoint tables; the
         outputs.  The bound for every (query, row), the ED of the live
-        pairs."""
+        pairs (3L - 1 each, as the cross form's)."""
         return bound_ms(nl * w + (live_rows + live_queries) * L * 4
                         + nq * (w + 2) * 4 + 2 * card * 4 + nq * K * 8 + 4,
-                        nq * nl * (7 * w + 1) + 3 * L * pairs)
+                        nq * nl * (7 * w + 1) + (3 * L - 1) * pairs)
     for label, b_ in (("seed", bound), ("tight", bound_t)):
         print(f"scan_verify device operations per call ({label} bound, "
               f"torch.profiler over {PROFILED_CALLS} calls):")
@@ -723,6 +787,21 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"scan_verify host time: {(time.perf_counter() - t0) / 200 * 1e6:.1f}"
           f" us per call (200 calls in a row, seed bound)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ops.batch_euclid_multi(q, median_rows_t)
+    torch.cuda.synchronize()
+    print(f"batch_euclid host time: {(time.perf_counter() - t0) / 200 * 1e6:.1f}"
+          f" us per call (200 cross-form calls in a row, Q={nq} x {nm} rows)")
+    t0 = time.perf_counter()
+    for r_ in cross_rows:
+        ops.batch_euclid_multi(q, tree.raw[:r_])
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / len(cross_rows)
+    print(f"batch_euclid host time: {host_s * 1e6:.1f} us per call (the "
+          f"eager batch's {len(cross_rows)} cross-form row counts in order, "
+          f"Q={nq})")
     chunk = tree.raw[:SEG_CHUNK].contiguous()      # one external-sort chunk
     nc = chunk.shape[0]
     c_codes = ops.sax_summarize(chunk, cfg)[1]
@@ -734,6 +813,10 @@ def main() -> int:
                 q_paas, codes_leaf, lower, upper, scale)),
             ("batch_euclid", ops.batch_euclid_multi(q, verify_rows),
              ref.batch_euclid_ref(q, verify_rows)),
+            ("batch_euclid_median", ops.batch_euclid_multi(q, median_rows_t),
+             ref.batch_euclid_ref(q, median_rows_t)),
+            ("batch_euclid_q1", ops.batch_euclid(q[0], raw_leaf),
+             ref.batch_euclid_ref(q[:1], raw_leaf)[0]),
             ("batch_euclid_gather", seed_d, ref.batch_euclid_gather_ref(
                 q, tree.raw, seed_idx)),
             *(("scan_verify", g, w_) for g, w_ in zip(sv, ref.scan_verify_ref(
@@ -776,7 +859,32 @@ def main() -> int:
                 compute_mode="donot_use_mm_for_euclid_dist").square_(),
             # the executor gathers these rows just before: warm in L2
             cold=False,
-            bound=bound_ms((nq + nv) * L * 4 + nq * nv * 4, 3 * nq * nv * L)),
+            bound=euclid_bound(nq, nv)),
+        "batch_euclid_median": dict(
+            source="src/repro_torch/kernels/csrc/batch_euclid.cu",
+            replaces="src/repro/kernels/batch_euclid.py:45",
+            shape=f"Q={nq} x N={nm} rows (the eager batch's median rows "
+                  f"per cross launch), L={L}",
+            launches_of="batch_euclid",
+            fn=lambda: ops.batch_euclid_multi(q, median_rows_t),
+            plain=lambda: ref.batch_euclid_ref(q, median_rows_t),
+            library=lambda: torch.cdist(
+                q, median_rows_t,
+                compute_mode="donot_use_mm_for_euclid_dist").square_(),
+            cold=False,
+            bound=euclid_bound(nq, nm)),
+        "batch_euclid_q1": dict(
+            source="src/repro_torch/kernels/csrc/batch_euclid.cu",
+            replaces="src/repro/kernels/batch_euclid.py:45",
+            shape=f"Q=1 x N={nl} rows (ops.batch_euclid, the TPU kernel's "
+                  f"own function; not on the main path), L={L}",
+            launches_of="batch_euclid",
+            fn=lambda: ops.batch_euclid(q[0], raw_leaf),
+            plain=lambda: ref.batch_euclid_ref(q[:1], raw_leaf)[0],
+            library=lambda: torch.cdist(
+                q[:1], raw_leaf,
+                compute_mode="donot_use_mm_for_euclid_dist").square_()[0],
+            bound=euclid_bound(1, nl)),
         "batch_euclid_gather": dict(
             source="src/repro_torch/kernels/csrc/batch_euclid.cu",
             replaces="src/repro/kernels/batch_euclid.py:45",
@@ -872,9 +980,12 @@ def main() -> int:
     launches["unpack_mindist_hot"] = \
         seg_out["launches"]["tiered_hot"].get("unpack_mindist", 0)
     errs["unpack_mindist_hot"] = errs["unpack_mindist"]
-    # the same kernel as scan_verify, timed under the batch's tightest bound:
-    # its launches are scan_verify's (the record says so in launches_of)
-    launches["scan_verify_tight"] = launches.get("scan_verify", 0)
+    # a kernel timed at a second shape (scan_verify under the batch's
+    # tightest bound, the cross form at other row counts): its launches are
+    # that kernel's, as the record says in launches_of
+    for name, cs in cases.items():
+        if "launches_of" in cs:
+            launches[name] = launches.get(cs["launches_of"], 0)
     record = []
     for name, cs in cases.items():
         cold = cs.get("cold", True)

@@ -7,10 +7,11 @@
 // PyTorch twins in kernels/ref.py and agree with them bit for bit.  No source
 // is compiled with --use_fast_math, and denormals are kept (no -ftz).
 //
-// The squared-ED routine is the only ED arithmetic on the card: the cross and
-// gathered batch_euclid forms and scan_verify all call ed_warp, so one
-// (query, row) pair has the same distance bits in every code path, for any
-// batch size, tile or launch shape.
+// ed_warp defines the squared-ED order on the card: the gathered
+// batch_euclid form and scan_verify call it, and the register-tiled cross
+// form (batch_euclid.cu) forms the same lane partials and folds them in the
+// same tree, so one (query, row) pair has the same distance bits in every
+// code path, for any batch size, tile or launch shape.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -51,7 +51,7 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "coconut_mindist_batch": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _F, _P],
-    "coconut_euclid_cross": [_P, _P, _P, _I, _LL, _I, _P],
+    "coconut_euclid_cross": [_P, _P, _P] + [_I] * 8 + [_P],
     "coconut_euclid_gather": [_P, _P, _P, _P, _I, _LL, _I, _P],
     "coconut_scan_verify": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 4 + [_P, _P],
     "coconut_fused_build": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _P],

@@ -8,7 +8,8 @@ operations in the same order with no fused multiply-add (see
 ``csrc/common.cuh``), so floats must agree bit for bit; ints exactly.
 Shapes: N not a multiple of any block, Q in {1, 8, 64}, b in {1, 4, 8},
 k in {1, 10}; the construction and packed-bound kernels also at b in
-{3, 5}, where packed symbols straddle bytes.  Cross-kernel identities:
+{3, 5}, where packed symbols straddle bytes; the cross form of
+``batch_euclid`` at every tile edge of its launch plan, L up to 4096.  Cross-kernel identities:
 ``sax_summarize`` + ``zorder`` == ``fused_build`` and ``unpack_mindist``
 == ``mindist_batch`` on the decoded codes, bit for bit.
 ``chip_smoke.py``'s kernel phase runs the same checks.
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core import summarization as S
 from repro_torch.kernels import loader, ops, ref
+from repro_torch.kernels.batch_euclid import WARP_R
 from repro_torch.kernels.scan_verify import launch_plan
 from repro_torch.storage.packing import pack_codes
 
@@ -102,6 +104,83 @@ def test_batch_euclid_kernel(cuda, n, nq):
         torch.cuda.synchronize()
         _same(gat, torch.gather(got, 1, idx))
         _same(ops.batch_euclid(t["q"][0], t["x"]), got[0])
+
+
+# the cross form's launch plan: N at every edge of one and two row tiles,
+# Q across the 4-query warp tile and the 16-query block tile, L across the
+# 32-lane steps and the shared-memory chunks (L >= 1024 takes several)
+CROSS_NS = (1, WARP_R - 1, WARP_R, WARP_R + 1, 2 * WARP_R - 1, 2 * WARP_R,
+            2 * WARP_R + 1, 2037)
+CROSS_QS = (1, 7, 8, 9, 16, 17, 64, 100)
+CROSS_LS = (1, 31, 32, 33, 100, 256, 1024, 4096)
+
+
+def _cross_same_as_twin(q, x):
+    """The cross form on the card == its twin on the card and on the CPU,
+    bit for bit; returns the card's output."""
+    got = ops.batch_euclid_multi(q, x)
+    torch.cuda.synchronize()
+    _same(got, ref.batch_euclid_ref(q, x))
+    _same(got, ops.batch_euclid_multi(q.cpu(), x.cpu()))
+    return got
+
+
+def _normal(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+
+@pytest.mark.parametrize("L", CROSS_LS)
+@pytest.mark.parametrize("nq", CROSS_QS)
+def test_batch_euclid_cross_tile_edges(cuda, nq, L):
+    rng = np.random.default_rng(nq * 10_000 + L)
+    q = _normal(rng, nq, L).to(cuda)
+    for n in CROSS_NS:
+        x = _normal(rng, n, L).to(cuda)
+        got = _cross_same_as_twin(q, x)
+        # the gathered form gives the same pairs the same bits, and
+        # ops.batch_euclid (Q = 1) is row 0
+        idx = torch.from_numpy(rng.integers(0, n, (nq, 33))).to(cuda)
+        _same(ops.batch_euclid_multi(q, x, idx=idx), torch.gather(got, 1, idx))
+        _same(ops.batch_euclid(q[0], x), got[0])
+
+
+def test_batch_euclid_cross_repeatable(cuda):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_walks(rng, 64, 256)).to(cuda)
+    x = torch.from_numpy(_walks(rng, 1183, 256)).to(cuda)
+    first = _cross_same_as_twin(q, x)
+    for _ in range(20):
+        _same(ops.batch_euclid_multi(q, x), first)
+
+
+@pytest.mark.parametrize("L", (33, 256, 1024))
+def test_batch_euclid_cross_extreme_inputs(cuda, L):
+    """Zeros, rows equal to queries (distance 0) and magnitudes whose
+    squares overflow to inf, as the twin's do."""
+    rng = np.random.default_rng(L)
+    q = _normal(rng, 17, L)
+    x = _normal(rng, 301, L)
+    x[17:40] = 0.0
+    q[5] = 0.0
+    x[40:60, ::3] = 1e20
+    q[7, 1::5] = -3e19
+    x[60:70] = 1e20
+    q[8] = -1e20
+    x[:17] = q
+    got = _cross_same_as_twin(q.to(cuda), x.to(cuda))
+    assert (got[:, :17].diagonal() == 0).all()
+    assert torch.isinf(got[:, 40:60]).all() and torch.isinf(got[8, 60:70]).all()
+
+
+def test_batch_euclid_cross_unaligned_rows(cuda):
+    """Queries and rows that are not 16-byte aligned take 4-byte copies."""
+    rng = np.random.default_rng(9)
+    flat_x = _normal(rng, 300 * 256 + 1).to(cuda)
+    flat_q = _normal(rng, 17 * 256 + 3).to(cuda)
+    x = flat_x[1:].view(300, 256)
+    q = flat_q[3:].view(17, 256)
+    got = _cross_same_as_twin(q, x)
+    _same(got, _cross_same_as_twin(q.clone(), x.clone()))
 
 
 @pytest.mark.parametrize("k", (1, 10))
