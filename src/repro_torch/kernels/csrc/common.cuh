@@ -188,12 +188,22 @@ __device__ __forceinline__ void summarize_tile(
   __syncthreads();
 }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+// The error of a refused runtime call, cleared from CUDA's last error: every
+// entry point ends in cudaGetLastError(), so an error left set would make the
+// next call of any kernel in the library fail.
+inline cudaError_t refused(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel;
+// a size above what a block can use is refused (and cleared).
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  return refused(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 }  // namespace coconut

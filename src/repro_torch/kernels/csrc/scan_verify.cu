@@ -671,13 +671,13 @@ template <int W>
 cudaError_t allow_block_smem() {
   static std::atomic<unsigned> lifted{0};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = refused(cudaGetDevice(&dev));
   if (err != cudaSuccess) return err;
   const unsigned bit = dev < 32 ? 1u << dev : 0u;
   if (lifted.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(scan_verify_kernel<W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kBlockSmem);
+  err = refused(cudaFuncSetAttribute(scan_verify_kernel<W>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     kBlockSmem));
   if (err == cudaSuccess) lifted |= bit;
   return err;
 }

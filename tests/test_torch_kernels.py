@@ -423,3 +423,51 @@ def test_wrappers_count_launches(cuda):
                  "scan_verify", "sax_summarize", "zorder",
                  "unpack_mindist"):
         assert loader.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+def _every_kernel_matches_twin(dev):
+    """One good call of every kernel in the library, each equal to its
+    twin: an error that an earlier call left set would fail the first."""
+    cfg = S.SummaryConfig(64, 8, 4)
+    t = _inputs(11, 300, 8, cfg, dev)
+    lower, upper = S.region_bounds(4, device=dev)
+    bps = S.breakpoints(4, device=dev)
+    scale = cfg.series_len / cfg.segments
+    _same(ops.mindist_batch(t["q_paas"], t["codes"], cfg),
+          ref.mindist_batch_ref(t["q_paas"], t["codes"], lower, upper, scale))
+    packed = torch.from_numpy(pack_codes(t["codes"].cpu().numpy(), 4)).to(dev)
+    _same(ops.mindist_batch_packed(t["q_paas"], packed, cfg),
+          ref.mindist_batch_packed_ref(t["q_paas"], packed, lower, upper,
+                                       scale, w=8, b=4))
+    ed = ops.batch_euclid_multi(t["q"], t["x"])
+    _same(ed, ref.batch_euclid_ref(t["q"], t["x"]))
+    idx = torch.arange(8 * 5, device=dev).reshape(8, 5)
+    _same(ops.batch_euclid_multi(t["q"], t["x"], idx=idx),
+          ref.batch_euclid_gather_ref(t["q"], t["x"], idx))
+    bound = ed.median(dim=1).values
+    no_dead = torch.zeros(300, dtype=torch.int32, device=dev)
+    for g, w_ in zip(ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
+                                     bound, cfg, k=4),
+                     ref.scan_verify_ref(t["q"], t["q_paas"], t["codes"],
+                                         t["x"], lower, upper, bound, no_dead,
+                                         scale=scale, k=4)):
+        _same(g, w_)
+    for g, w_ in zip(ops.summarize_and_key(t["x"], cfg),
+                     ref.fused_build_ref(t["x"], bps, segments=8, bits=4)):
+        _same(g, w_)
+    for g, w_ in zip(ops.sax_summarize(t["x"], cfg),
+                     ref.sax_summarize_ref(t["x"], bps, segments=8)):
+        _same(g, w_)
+    _same(ops.zorder(t["codes"], cfg), ref.zorder_ref(t["codes"], w=8, b=4))
+
+
+@pytest.mark.parametrize("entry", ["sax_summarize", "summarize_and_key"])
+def test_refused_shared_memory_leaves_no_stale_error(cuda, entry):
+    """At L = 60,000 and w = 16 one row needs more shared memory than a
+    block can use (232,448 B): the call raises with CUDA's error, and
+    every kernel's next call still runs and equals its twin."""
+    cfg = S.SummaryConfig(60_000, 16, 8)
+    x = torch.zeros((2, 60_000), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        getattr(ops, entry)(x, cfg)
+    _every_kernel_matches_twin(cuda)
