@@ -300,6 +300,16 @@ def device_profile(torch, fn, reps: int = 1, top: int = 8):
     return sum(r[0] for r in rows), rows
 
 
+def kernel_total(rows, key: str, what: str) -> None:
+    """Print the device total and per-launch mean of the profiled kernels
+    whose name holds ``key`` (rows of :func:`device_profile`)."""
+    sel = [r for r in rows if key in r[2]]
+    ms, n = sum(r[0] for r in sel), sum(r[1] for r in sel)
+    print(f"{what} (torch.profiler, one batch): "
+          + (f"{ms:.3f} ms in {n} launches ({1e3 * ms / n:.2f} us each)"
+             if n else "not measured (the profiler recorded none)"))
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the storage path over the same walks
 # ---------------------------------------------------------------------------
@@ -421,11 +431,13 @@ def segment_phase(torch, np, x, tree, queries, tree_answer) -> dict:
         print(f"segment io: {io.as_dict()}; scan_bytes={st.scan_bytes} "
               f"leaves_scanned={st.leaves_scanned} "
               f"leaves_pruned={st.leaves_pruned}")
-        busy = device_profile(
-            torch, lambda: exact_search_mmap(seg, queries, k=K))[0]
+        busy, s_prof = device_profile(
+            torch, lambda: exact_search_mmap(seg, queries, k=K))
         print(f"segment device busy (torch.profiler, kernel time in one "
               f"batch): {busy:.3f} ms of {warm_s * 1e3:.1f} ms wall "
               f"({100 * busy / (warm_s * 1e3):.2f}%)")
+        kernel_total(s_prof, "UnpackMindist",
+                     "segment unpack_mindist kernels")
 
         # -- 8d: tiered leaf store ------------------------------------------
         tiers = TieredLeafStore(2 * TIER_DEVICE_BYTES,
@@ -455,6 +467,9 @@ def segment_phase(torch, np, x, tree, queries, tree_answer) -> dict:
               "tiered: the hot batch read code blocks that were not on "
               f"the device ({hot_delta}, {tiers.device_bytes} B resident)")
         out["launches"]["tiered_hot"] = hot_l
+        kernel_total(device_profile(
+            torch, lambda: exact_knn([part], queries, cfg, k=K))[1],
+            "UnpackMindist", "tiered hot unpack_mindist kernels")
         out["tiers"] = tiers.stats()
 
         # inputs for the unpack_mindist timings: leaf 0's packed codes,
@@ -622,13 +637,8 @@ def main() -> int:
     print(f"eager device busy (torch.profiler, kernel time in one batch): "
           f"{busy:.3f} ms of {eager_s * 1e3:.1f} ms wall "
           f"({100 * busy / (eager_s * 1e3):.2f}%)")
-    x_prof = [r for r in e_prof if "euclid_cross" in r[2]]
-    print("eager batch_euclid cross kernels (torch.profiler, one batch): "
-          + (f"{sum(r[0] for r in x_prof):.3f} ms in "
-             f"{sum(r[1] for r in x_prof)} launches "
-             f"({1e3 * sum(r[0] for r in x_prof) / sum(r[1] for r in x_prof):.2f}"
-             f" us each)" if x_prof else "not measured (the profiler "
-             "recorded none)"))
+    kernel_total(e_prof, "euclid_cross", "eager batch_euclid cross kernels")
+    kernel_total(e_prof, "MindistBatch", "eager mindist_batch kernels")
 
     # -- 5: fused search ---------------------------------------------------------
     part = Partition.from_tree(tree)

@@ -54,32 +54,24 @@ __device__ __forceinline__ float ed_warp(const float* __restrict__ x,
   return acc;
 }
 
-// SAX codes of row n into c[0..w): W > 0 is a compile-time width read with
-// one vector load (16 bytes at W = 16, 8 at W = 8); W == 0 reads byte by byte.
-template <int W>
-__device__ __forceinline__ void load_codes(const uint8_t* __restrict__ codes,
-                                           long long n, int w, int* c) {
-  if constexpr (W == 16) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes) + n);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) c[j] = (words[j >> 2] >> ((j & 3) * 8)) & 0xff;
-  } else if constexpr (W == 8) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(codes) + n);
-    const uint32_t words[2] = {v.x, v.y};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) c[j] = (words[j >> 2] >> ((j & 3) * 8)) & 0xff;
-  } else {
-    const uint8_t* row = codes + n * w;
-    for (int j = 0; j < w; ++j) c[j] = row[j];
-  }
+// One segment's term of the squared iSAX lower bound, added onto acc:
+// (max(lo - q, 0) + max(q - hi, 0))^2, one rounding per operation.  Every
+// bound on the card (mindist_row, the bound tile of mindist_batch and
+// unpack_mindist, and through mindist_row scan_verify's) adds its terms with
+// this routine, in index order, so they agree bit for bit by construction.
+__device__ __forceinline__ float mindist_term(float acc, float q, float lo,
+                                              float hi) {
+  const float below = fmaxf(__fsub_rn(lo, q), 0.f);
+  const float above = fmaxf(__fsub_rn(q, hi), 0.f);
+  const float d = __fadd_rn(below, above);
+  return __fadd_rn(acc, __fmul_rn(d, d));
 }
 
 // Squared iSAX lower bound of one (query, row) pair: the w segment terms
-// (max(lb - q, 0) + max(q - ub, 0))^2 added in index order, times L / w.
-// lower/upper are the [2^b] region tables with -inf / +inf at the ends.
-// The query's PAA is qpaa[j * stride] (a stride lets a kernel keep PAAs
-// query-minor in shared memory, so a warp's lanes read adjacent words).
+// added in index order, times L / w.  lower/upper are the [2^b] region
+// tables with -inf / +inf at the ends.  The query's PAA is qpaa[j * stride]
+// (a stride lets a kernel keep PAAs query-minor in shared memory, so a
+// warp's lanes read adjacent words).
 template <int W>
 __device__ __forceinline__ float mindist_row(const int* c,
                                              const float* __restrict__ qpaa,
@@ -90,13 +82,8 @@ __device__ __forceinline__ float mindist_row(const int* c,
   const int n = W > 0 ? W : w;
   float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < n; ++j) {
-    const float q = qpaa[j * stride];
-    const float below = fmaxf(__fsub_rn(lower[c[j]], q), 0.f);
-    const float above = fmaxf(__fsub_rn(q, upper[c[j]]), 0.f);
-    const float d = __fadd_rn(below, above);
-    acc = __fadd_rn(acc, __fmul_rn(d, d));
-  }
+  for (int j = 0; j < n; ++j)
+    acc = mindist_term(acc, qpaa[j * stride], lower[c[j]], upper[c[j]]);
   return __fmul_rn(scale, acc);
 }
 
@@ -136,23 +123,17 @@ __device__ __forceinline__ unsigned zorder_word(const int* c, int stride, int kw
   return word;
 }
 
-// The w symbols of one bit-packed code row of pw bytes: symbol j sits MSB
-// first at bit j * b and is read through the two-byte window at byte
-// j * b / 8.  A window that would reach past the row reads a zero byte there,
-// so no byte of the next row (or past the array) is ever read.
-template <int W>
-__device__ __forceinline__ void unpack_row(const uint8_t* row, int w, int b,
-                                           int pw, int* c) {
-  const int n = W > 0 ? W : w;
-  const int mask = (1 << b) - 1;
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    const int bit = j * b;
-    const int bl = bit >> 3;
-    const int hi = row[bl];
-    const int lo = bl + 1 < pw ? row[bl + 1] : 0;
-    c[j] = (((hi << 8) | lo) >> (16 - (bit & 7) - b)) & mask;
-  }
+// Symbol j of a bit-packed code row of pw bytes whose byte m is byte(m):
+// it sits MSB first at bit j * b and is read through the two-byte window at
+// byte j * b / 8.  A window that would reach past the row reads a zero byte
+// there, so no byte of the next row (or past the array) is ever read.
+template <typename Byte>
+__device__ __forceinline__ int unpack_symbol(Byte byte, int j, int b, int pw) {
+  const int bit = j * b;
+  const int bl = bit >> 3;
+  const int hi = byte(bl);
+  const int lo = bl + 1 < pw ? byte(bl + 1) : 0;
+  return (((hi << 8) | lo) >> (16 - (bit & 7) - b)) & ((1 << b) - 1);
 }
 
 // Summarize a tile of tr rows starting at row0 (the construction pass shared

@@ -5,84 +5,48 @@
 // (mindist_batch_pallas, pl.pallas_call at line 70) and, at Q = 1, the
 // single-query src/repro/kernels/mindist_scan.py (mindist_pallas, line 65).
 //
-// What bounds it on an H100: bytes.  Per row it reads w bytes of codes (16 B at
-// the paper's w = 16) and writes Q floats of bound (256 B at Q = 64), so the
-// output dominates; the arithmetic is ~7 flops per (pair, segment).  The TPU
-// kernel's one-hot region lookup (a gather-free trick for the TPU's vector
-// unit) is gone: the two [2^b] region tables (2 KB at b = 8) and the block's
-// query PAAs live in shared memory and are indexed directly.
+// What bounds it on an H100.  The work is small: at the main path's shape
+// (Q = 64, one 2000-row leaf, w = 16) the bytes it must move (32 KB of codes
+// in, 512 KB of bound out) take 0.16 us at 3.35 TB/s and its 14.5 M FP32
+// instructions 0.43 us.  What held the first design far above that was
+// latency and a quarter of the card: 256 rows and 16 queries a block gave
+// 32 blocks on 132 SMs, and each thread walked 16 queries x 16 segments as
+// one dependent chain with two table loads a step.  The TPU kernel's one-hot
+// region lookup (a gather-free trick for the TPU's vector unit) is gone: the
+// region tables live in shared memory and are indexed directly.
 //
-// Design: one thread per row, 256 rows per block; blockIdx.y tiles the queries
-// (kQTile per block).  A thread loads its row's codes once (one 16-byte load at
-// w = 16, straight from the tree's uint8 column) and loops over the block's
-// queries, so each store of a query's row of output is coalesced across the
-// warp.  FMA contraction: none (see common.cuh).
-#include "common.cuh"
+// Design (bound_tile.cuh): a thread owns one row and a tile of up to 4
+// queries; it reads its codes in place (one 16-byte load at w = 16, issued
+// before the block fills its tables), looks up each segment's {lo, hi} pair
+// once and adds the term to its queries' independent accumulators.  The
+// launch plan (kernels/mindist_batch.py:launch_plan) sizes the row and query
+// tiles so that the main path's launch has 512 blocks of 64 threads, and
+// keeps a block within the default 48 KB of shared memory.  What is left
+// (measured on an H100): about 1 us of launch, one trip to memory and the
+// stores, which the kernel pays at Q = 1 too, and the 64 queries' FP32
+// terms at about half the card's issue rate.  FMA contraction: none (see
+// common.cuh).
+#include "bound_tile.cuh"
 
 namespace coconut {
-namespace {
-
-constexpr int kRows = 256;
-constexpr int kQTile = 16;
-
-template <int W>
-__global__ void __launch_bounds__(kRows)
-mindist_batch_kernel(const float* __restrict__ q_paas,
-                     const uint8_t* __restrict__ codes,
-                     const float* __restrict__ lower,
-                     const float* __restrict__ upper, float* __restrict__ out,
-                     int nq, long long n, int w, int card, float scale) {
-  extern __shared__ float smem[];
-  float* s_lo = smem;
-  float* s_hi = s_lo + card;
-  float* s_q = s_hi + card;
-  const int q0 = blockIdx.y * kQTile;
-  const int tq = min(kQTile, nq - q0);
-  for (int i = threadIdx.x; i < card; i += blockDim.x) {
-    s_lo[i] = lower[i];
-    s_hi[i] = upper[i];
-  }
-  for (int i = threadIdx.x; i < tq * w; i += blockDim.x)
-    s_q[i] = q_paas[static_cast<long long>(q0) * w + i];
-  __syncthreads();
-  const long long row = static_cast<long long>(blockIdx.x) * kRows + threadIdx.x;
-  if (row >= n) return;
-  int c[W > 0 ? W : kMaxW];
-  load_codes<W>(codes, row, w, c);
-  for (int qi = 0; qi < tq; ++qi)
-    out[static_cast<long long>(q0 + qi) * n + row] =
-        mindist_row<W>(c, s_q + qi * w, s_lo, s_hi, w, scale);
-}
-
-template <int W>
-cudaError_t launch(const float* q_paas, const uint8_t* codes, const float* lower,
-                   const float* upper, float* out, int nq, long long n, int w,
-                   int card, float scale, cudaStream_t stream) {
-  const size_t smem = (2 * card + kQTile * w) * sizeof(float);
-  cudaError_t err = allow_smem(mindist_batch_kernel<W>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((n + kRows - 1) / kRows),
-                  static_cast<unsigned>((nq + kQTile - 1) / kQTile));
-  mindist_batch_kernel<W><<<grid, kRows, smem, stream>>>(
-      q_paas, codes, lower, upper, out, nq, n, w, card, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
+struct MindistBatch {};   // the kernel's name in a profile
 }  // namespace coconut
 
 // C entry point.  Returns a cudaError_t (0 on success).  Requires nq >= 1,
-// n >= 1, 1 <= w <= 64; codes rows contiguous.
+// n >= 1, 1 <= w <= 64, 1 <= card <= 256, codes rows contiguous, and the
+// wrapper's launch plan: rows threads (whole warps), one row each, and qt
+// queries a block, a (grid_x, grid_y) grid that covers every pair, and smem
+// bytes that hold the block's layout (launch_bound checks each).
 extern "C" int coconut_mindist_batch(const float* q_paas, const uint8_t* codes,
                                      const float* lower, const float* upper,
                                      float* out, int nq, long long n, int w,
-                                     int card, float scale, void* stream) {
+                                     int card, float scale, int rows, int qt,
+                                     int grid_x, int grid_y, int smem,
+                                     void* stream) {
   using namespace coconut;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uintptr_t p = reinterpret_cast<uintptr_t>(codes);
-  if (w == 16 && p % 16 == 0)
-    return launch<16>(q_paas, codes, lower, upper, out, nq, n, w, card, scale, s);
-  if (w == 8 && p % 8 == 0)
-    return launch<8>(q_paas, codes, lower, upper, out, nq, n, w, card, scale, s);
-  return launch<0>(q_paas, codes, lower, upper, out, nq, n, w, card, scale, s);
+  const BoundArgs a{q_paas, codes, lower, upper, out, nq, n, w, 8, w, card,
+                    scale, 0};
+  return launch_bound<MindistBatch>(a, in_place_src(codes, w), rows, qt,
+                                    grid_x, grid_y, smem,
+                                    static_cast<cudaStream_t>(stream));
 }

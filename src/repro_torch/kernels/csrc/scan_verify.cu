@@ -23,7 +23,7 @@
 //     Copies into shared memory are cp.async, issued by every thread and in
 //     flight together.
 //   * Bound: one warp per (row, 32 queries) computes mindist_row (the
-//     routine of mindist_batch) lane by lane from the tile's staged codes and
+//     terms of mindist_batch) lane by lane from the tile's staged codes and
 //     the PAAs staged query-minor (adjacent lanes read adjacent words), and
 //     ballots the live bits into a per-row query mask.  Per-query counts are
 //     popcounts of the masks (integer sums, exact in any order); a row is in
@@ -300,7 +300,7 @@ __device__ __forceinline__ void stage_codes(uint8_t* dst, const uint8_t* codes,
   }
 }
 
-// A row's codes from shared memory (the vector reads of load_codes).
+// A row's codes from shared memory (one vector read at w = 16 or 8).
 template <int W>
 __device__ __forceinline__ void smem_codes(const uint8_t* row, int w, int* c) {
   if constexpr (W == 16) {

@@ -8,96 +8,49 @@
 // rows were read from the mmap and copied over or come from the tiered
 // store's device-resident blocks.
 //
-// What bounds it on an H100: bytes.  Per row it reads ceil(w b / 8) packed
-// bytes (16 B at the paper's w = 16, b = 8) and writes Q floats of bound
-// (256 B at Q = 64), so the output dominates, as in mindist_batch.
+// What bounds it on an H100: as mindist_batch, latency and filling the card,
+// not bytes (at the paper's w = 16, b = 8 a row is 16 packed bytes in and
+// Q floats of bound out).  The first design also staged the packed bytes
+// with one-byte stores and read them at a row stride of 16 bytes, four lanes
+// to a bank.
 //
-// Design: mindist_batch's, with the unpack in front.  One thread per row, 256
-// rows per block, blockIdx.y tiles the queries.  The block first copies its
-// rows' packed bytes (one contiguous range) into shared memory with coalesced
-// loads; each thread then extracts its w symbols with unpack_row (common.cuh):
-// symbol j is read MSB first through the two-byte window at bit j * b, and a
-// window that would reach past the row reads zero there instead of the next
-// row's byte (the TPU kernel padded one zero byte onto every row for this).
-// The bound itself is mindist_row, the routine mindist_batch runs, with the
-// same region tables and query PAAs in shared memory and the same summation
-// order, so packed == unpacked holds bit for bit by construction.
+// Design: mindist_batch's bound tile (bound_tile.cuh), with the symbols
+// found two ways.
+//   * b = 8: a packed row is the code row byte for byte (symbol j is byte j:
+//     the window at bit 8j is row[j]), so the rows are read in place exactly
+//     as mindist_batch reads codes, with no staging.
+//   * b < 8: the block copies its rows' packed bytes into shared memory in
+//     4-byte words, each row at a stride of an odd number of words so a
+//     warp's 32 rows sit in 32 banks; a thread then extracts symbol j with
+//     unpack_symbol (common.cuh): MSB first through the two-byte window at
+//     bit j * b, reading zero instead of any byte past its row (the TPU
+//     kernel padded one zero byte onto every row for this).
+// Either way the bound is the same tile routine with the same region table
+// and query PAAs, so packed == unpacked holds bit for bit by construction.
 // FMA contraction: none (see common.cuh).
-#include "common.cuh"
+#include "bound_tile.cuh"
 
 namespace coconut {
-namespace {
-
-constexpr int kRows = 256;
-constexpr int kQTile = 16;
-
-template <int W>
-__global__ void __launch_bounds__(kRows)
-unpack_mindist_kernel(const float* __restrict__ q_paas,
-                      const uint8_t* __restrict__ packed,
-                      const float* __restrict__ lower,
-                      const float* __restrict__ upper, float* __restrict__ out,
-                      int nq, long long n, int w, int b, int pw, int card,
-                      float scale) {
-  extern __shared__ float smem[];
-  float* s_lo = smem;
-  float* s_hi = s_lo + card;
-  float* s_q = s_hi + card;
-  uint8_t* s_pk = reinterpret_cast<uint8_t*>(s_q + kQTile * w);  // [kRows, pw]
-  const int q0 = blockIdx.y * kQTile;
-  const int tq = min(kQTile, nq - q0);
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int tr = static_cast<int>(min(static_cast<long long>(kRows), n - row0));
-  for (int i = threadIdx.x; i < card; i += blockDim.x) {
-    s_lo[i] = lower[i];
-    s_hi[i] = upper[i];
-  }
-  for (int i = threadIdx.x; i < tq * w; i += blockDim.x)
-    s_q[i] = q_paas[static_cast<long long>(q0) * w + i];
-  const uint8_t* src = packed + row0 * pw;
-  for (int i = threadIdx.x; i < tr * pw; i += blockDim.x) s_pk[i] = src[i];
-  __syncthreads();
-  if (threadIdx.x >= tr) return;
-  const long long row = row0 + threadIdx.x;
-  int c[W > 0 ? W : kMaxW];
-  unpack_row<W>(s_pk + threadIdx.x * pw, w, b, pw, c);
-  for (int qi = 0; qi < tq; ++qi)
-    out[static_cast<long long>(q0 + qi) * n + row] =
-        mindist_row<W>(c, s_q + qi * w, s_lo, s_hi, w, scale);
-}
-
-template <int W>
-cudaError_t launch(const float* q_paas, const uint8_t* packed,
-                   const float* lower, const float* upper, float* out, int nq,
-                   long long n, int w, int b, int pw, int card, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = (2 * card + kQTile * w) * sizeof(float) +
-                      static_cast<size_t>(kRows) * pw;
-  cudaError_t err = allow_smem(unpack_mindist_kernel<W>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((n + kRows - 1) / kRows),
-                  static_cast<unsigned>((nq + kQTile - 1) / kQTile));
-  unpack_mindist_kernel<W><<<grid, kRows, smem, stream>>>(
-      q_paas, packed, lower, upper, out, nq, n, w, b, pw, card, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
+struct UnpackMindist {};   // the kernel's name in a profile
 }  // namespace coconut
 
 // C entry point.  Returns a cudaError_t (0 on success).  Requires nq >= 1,
-// n >= 1, 1 <= w <= 64, 1 <= b <= 8, pw = ceil(w * b / 8), card = 2^b; packed
-// rows contiguous.
+// n >= 1, 1 <= w <= 64, 1 <= b <= 8, pw = ceil(w * b / 8), card = 2^b,
+// packed rows contiguous, and the wrapper's launch plan as for
+// coconut_mindist_batch; for b < 8 also stride, the staged row stride in
+// 4-byte words (>= ceil(pw / 4)), which smem must hold for rows rows.
 extern "C" int coconut_unpack_mindist(const float* q_paas, const uint8_t* packed,
                                       const float* lower, const float* upper,
                                       float* out, int nq, long long n, int w,
                                       int b, int pw, int card, float scale,
-                                      void* stream) {
+                                      int rows, int qt, int grid_x, int grid_y,
+                                      int stride, int smem, void* stream) {
   using namespace coconut;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w == 16)
-    return launch<16>(q_paas, packed, lower, upper, out, nq, n, w, b, pw, card,
-                      scale, s);
-  return launch<0>(q_paas, packed, lower, upper, out, nq, n, w, b, pw, card,
-                   scale, s);
+  if (b < 1 || b > 8 || pw != (w * b + 7) / 8 || card != 1 << b)
+    return cudaErrorInvalidValue;
+  const BoundArgs a{q_paas, packed, lower, upper, out, nq, n, w, b, pw, card,
+                    scale, stride};
+  const Src src = b == 8 ? in_place_src(packed, w) : Src::kStaged;
+  return launch_bound<UnpackMindist>(a, src, rows, qt, grid_x, grid_y, smem,
+                                     static_cast<cudaStream_t>(stream));
 }

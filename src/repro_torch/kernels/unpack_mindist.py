@@ -5,13 +5,17 @@ Batched squared iSAX lower bound over bit-packed code rows: q_paas
 bit-equal to ``mindist_batch`` on the decoded codes.  Replaces the TPU
 kernel ``unpack_mindist_batch_pallas`` of the reference package.  A CPU
 tensor goes to the plain twin
-:func:`repro_torch.kernels.ref.mindist_batch_packed_ref`.
+:func:`repro_torch.kernels.ref.mindist_batch_packed_ref`.  The launch plan
+is ``mindist_batch``'s (:func:`repro_torch.kernels.mindist_batch.launch_plan`):
+at b = 8 a packed row is the code row and is read in place; at b < 8 a
+block stages its packed rows.
 """
 from __future__ import annotations
 
 import torch
 
 from . import loader, ref
+from .mindist_batch import launch_plan
 
 __all__ = ["unpack_mindist"]
 
@@ -34,19 +38,22 @@ def unpack_mindist(q_paas: torch.Tensor, packed: torch.Tensor,
     nq = q_paas.shape[0]
     n, pw = packed.shape
     card = lower.shape[0]
-    if (q_paas.shape[1] != w or pw != -(-(w * b) // 8) or card != 1 << b
-            or upper.shape[0] != card or not 1 <= w <= MAX_W):
+    if (not 1 <= b <= 8 or q_paas.shape[1] != w or pw != -(-(w * b) // 8)
+            or card != 1 << b or upper.shape[0] != card
+            or not 1 <= w <= MAX_W):
         raise ValueError(f"{NAME}: q_paas {tuple(q_paas.shape)}, packed "
                          f"{tuple(packed.shape)}, tables {card}, w={w}, b={b}")
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
     if nq == 0 or n == 0:
         return out
+    plan = launch_plan(nq, n, w, 0 if b == 8 else pw)
     lib = loader.library()
     with torch.cuda.device(dev):
         rc = lib.coconut_unpack_mindist(
             q_paas.data_ptr(), packed.data_ptr(), lower.data_ptr(),
             upper.data_ptr(), out.data_ptr(), nq, n, w, b, pw, card,
-            float(scale), loader.stream_ptr(dev))
+            float(scale), plan.rows, plan.qt, *plan.grid, plan.stride,
+            plan.smem, loader.stream_ptr(dev))
     loader.LAUNCHES[NAME] += 1
     loader.check(NAME, rc)
     return out

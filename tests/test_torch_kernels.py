@@ -9,7 +9,11 @@ operations in the same order with no fused multiply-add (see
 Shapes: N not a multiple of any block, Q in {1, 8, 64}, b in {1, 4, 8},
 k in {1, 10}; the construction and packed-bound kernels also at b in
 {3, 5}, where packed symbols straddle bytes; the cross form of
-``batch_euclid`` at every tile edge of its launch plan, L up to 4096.  Cross-kernel identities:
+``batch_euclid`` at every tile edge of its launch plan, L up to 4096; the
+bound tile of ``mindist_batch`` and ``unpack_mindist`` at every tile edge
+of its plan, w in {8, 16, 64}, every b, at every byte offset.  After a
+shape a kernel refuses, every kernel's next call still runs.
+Cross-kernel identities:
 ``sax_summarize`` + ``zorder`` == ``fused_build`` and ``unpack_mindist``
 == ``mindist_batch`` on the decoded codes, bit for bit.
 ``chip_smoke.py``'s kernel phase runs the same checks.
@@ -23,6 +27,7 @@ import torch
 from repro_torch.core import summarization as S
 from repro_torch.kernels import loader, ops, ref
 from repro_torch.kernels.batch_euclid import WARP_R
+from repro_torch.kernels.mindist_batch import ROWS as MD_ROWS
 from repro_torch.kernels.scan_verify import launch_plan
 from repro_torch.storage.packing import pack_codes
 
@@ -404,6 +409,112 @@ def test_unpack_mindist_kernel(cuda, n, nq, b):
         if n > 2:
             _same(ops.mindist_batch_packed(t["q_paas"], packed[1:-1], cfg),
                   got[:, 1:-1])
+
+
+# the bound tile's launch plan (mindist_batch and unpack_mindist): N at
+# every edge of one and two row tiles, Q across every query tile (1, 2 or 4
+# per thread) and the grid's second axis, w through the 16-byte (w = 16,
+# 64, a row read in chunks) and byte-wise (w = 8) code reads
+MD_NS = (1, MD_ROWS - 1, MD_ROWS, MD_ROWS + 1, 2 * MD_ROWS - 1, 2 * MD_ROWS,
+         2 * MD_ROWS + 1, 2037)
+MD_QS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 64, 65)
+MD_WS = (8, 16, 64)
+
+
+def _bound_inputs(seed, nq, n, w, b, dev):
+    """Random codes (reaching the -inf / +inf table ends) and query PAAs,
+    a quarter of them exactly on a breakpoint."""
+    rng = np.random.default_rng(seed)
+    lower, upper = S.region_bounds(b)
+    codes = rng.integers(0, 1 << b, (n, w), dtype=np.uint8)
+    q = rng.standard_normal((nq, w)).astype(np.float32)
+    on = rng.random((nq, w)) < 0.25
+    q[on] = upper.numpy()[rng.integers(0, (1 << b) - 1, on.sum())]
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(codes).to(dev),
+            lower.to(dev), upper.to(dev))
+
+
+def _bounds_same_as_twins(q, codes, lower, upper, cfg):
+    """mindist_batch on the codes and unpack_mindist on their packed rows,
+    each == its twin on the card and on the CPU, and == each other, bit
+    for bit; returns the card's bound."""
+    b, w = cfg.bits, cfg.segments
+    scale = cfg.series_len / w
+    got = ops.mindist_batch(q, codes, cfg)
+    torch.cuda.synchronize()
+    _same(got, ref.mindist_batch_ref(q, codes, lower, upper, scale))
+    _same(got, ops.mindist_batch(q.cpu(), codes.cpu(), cfg))
+    packed = torch.from_numpy(pack_codes(codes.cpu().numpy(), b)).to(q.device)
+    pk = ops.mindist_batch_packed(q, packed, cfg)
+    torch.cuda.synchronize()
+    _same(pk, ref.mindist_batch_packed_ref(q, packed, lower, upper, scale,
+                                           w=w, b=b))
+    _same(pk, got)          # packed == unpacked
+    return got
+
+
+@pytest.mark.parametrize("w", MD_WS)
+@pytest.mark.parametrize("nq", MD_QS)
+def test_bound_tile_edges(cuda, nq, w):
+    for b in range(1, 9):
+        cfg = S.SummaryConfig(4 * w, w, b)
+        q, codes, lower, upper = _bound_inputs(nq * w + b, nq, MD_NS[-1], w,
+                                               b, cuda)
+        for n in MD_NS:
+            got = _bounds_same_as_twins(q, codes[:n].contiguous(), lower,
+                                        upper, cfg)
+            if nq > 1:      # Q=1 is row 0 of the batch
+                _same(ops.mindist(q[0], codes[:n], cfg), got[0])
+
+
+@pytest.mark.parametrize("w", MD_WS)
+def test_bound_tile_unaligned_and_offset_views(cuda, w):
+    """Codes and packed rows at every byte offset of a 16-byte word (the
+    in-place reads fall back from 16-byte loads to bytes; the staged copy
+    funnel-shifts two words), and views into the middle of a column."""
+    for b in (1, 3, 5, 7, 8):
+        cfg = S.SummaryConfig(4 * w, w, b)
+        q, codes, lower, upper = _bound_inputs(w + b, 17, 300, w, b, cuda)
+        want = _bounds_same_as_twins(q, codes, lower, upper, cfg)
+        packed = torch.from_numpy(pack_codes(codes.cpu().numpy(), b)).to(cuda)
+        for off in range(16):
+            buf = torch.zeros(codes.numel() + 16, dtype=torch.uint8,
+                              device=cuda)
+            view = buf[off:off + codes.numel()].view(codes.shape)
+            view.copy_(codes)
+            _same(ops.mindist_batch(q, view, cfg), want)
+            pbuf = torch.zeros(packed.numel() + 16, dtype=torch.uint8,
+                               device=cuda)
+            pview = pbuf[off:off + packed.numel()].view(packed.shape)
+            pview.copy_(packed)
+            _same(ops.mindist_batch_packed(q, pview, cfg), want)
+        _same(ops.mindist_batch(q, codes[1:], cfg), want[:, 1:])
+        _same(ops.mindist_batch_packed(q, packed[1:-1], cfg), want[:, 1:-1])
+
+
+def test_bound_tile_repeatable(cuda):
+    """20 launches at the main path's shape give the same bits."""
+    cfg = S.SummaryConfig(256, 16, 8)
+    q, codes, lower, upper = _bound_inputs(3, 64, 2000, 16, 8, cuda)
+    packed = torch.from_numpy(pack_codes(codes.cpu().numpy(), 8)).to(cuda)
+    first = ops.mindist_batch(q, codes, cfg)
+    for _ in range(20):
+        _same(ops.mindist_batch(q, codes, cfg), first)
+        _same(ops.mindist_batch_packed(q, packed, cfg), first)
+
+
+@pytest.mark.parametrize("b", BITS)
+def test_scan_verify_counts_are_bound_tile_live_pairs(cuda, b):
+    """scan_verify's per-query live counts at a bound equal the pairs the
+    bound tile puts under it: the two kernels' bounds share their terms."""
+    cfg = S.SummaryConfig(256, 16, b)
+    t = _inputs(b, 2037, 64, cfg, cuda)
+    md = ops.mindist_batch(t["q_paas"], t["codes"], cfg)
+    for bound in (md.median(dim=1).values, md.min(dim=1).values,
+                  torch.full((64,), float("inf"), device=cuda)):
+        counts = ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
+                                 bound, cfg, k=10)[2]
+        _same(counts, (md < bound[:, None]).sum(1).to(counts.dtype))
 
 
 def test_wrappers_count_launches(cuda):
