@@ -120,15 +120,40 @@ bound_kernel(BoundArgs a) {
   if constexpr (S == Src::kVec16) {
     if (live) cur = __ldg(reinterpret_cast<const uint4*>(src));
   }
-  for (int i = tid; i < a.card; i += rows)
-    s_tab[i] = make_float2(a.lower[i], a.upper[i]);
+  // the fills: every read is issued before any shared store, so a block
+  // waits for one trip to memory rather than one per loop step (a thread
+  // holds at most kTabPer table entries and kQPer PAAs, since rows >= 32)
+  constexpr int kTabPer = kTabEntries / kWarp;
+  constexpr int kQPer = QT * kMaxW / kWarp;
+  float2 tab[kTabPer];
+#pragma unroll
+  for (int u = 0; u < kTabPer; ++u) {
+    const int i = tid + u * rows;
+    if (i < a.card)
+      tab[u] = make_float2(__ldg(a.lower + i), __ldg(a.upper + i));
+  }
   // PAAs read in their global order (coalesced), stored query-minor; the
   // queries past nq get zeros and are never stored
-  for (int i = tid; i < QT * a.w; i += rows) {
-    const int k = i / a.w;
-    const int j = i - k * a.w;
-    s_q[j * QT + k] = q0 + k < a.nq
-        ? a.q_paas[static_cast<long long>(q0 + k) * a.w + j] : 0.f;
+  const int nqb = min(QT, a.nq - q0);
+  const float* qsrc = a.q_paas + static_cast<long long>(q0) * a.w;
+  float qv[kQPer];
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = tid + u * rows;
+    qv[u] = i < nqb * a.w ? __ldg(qsrc + i) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kTabPer; ++u) {
+    const int i = tid + u * rows;
+    if (i < a.card) s_tab[i] = tab[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = tid + u * rows;
+    if (i < QT * a.w) {
+      const int k = i / a.w;
+      s_q[(i - k * a.w) * QT + k] = qv[u];
+    }
   }
   if constexpr (S == Src::kStaged) {
     const int tr = static_cast<int>(min(static_cast<long long>(rows),
