@@ -765,11 +765,21 @@ def main() -> int:
         """scan_verify's least work: the leaf's codes, the live rows and
         the raw rows of the queries with a live pair, once each; every
         query's PAA, bound and count; the two breakpoint tables; the
-        outputs.  The bound for every (query, row), the ED of the live
-        pairs (3L - 1 each, as the cross form's)."""
+        outputs.  The bound for every (query, row) (7w each, as
+        md_bound's), the ED of the live pairs (3L - 1 each, as the cross
+        form's)."""
         return bound_ms(nl * w + (live_rows + live_queries) * L * 4
                         + nq * (w + 2) * 4 + 2 * card * 4 + nq * K * 8 + 4,
-                        nq * nl * (7 * w + 1) + (3 * L - 1) * pairs)
+                        nq * nl * 7 * w + (3 * L - 1) * pairs)
+
+    def md_bound(nq_, n_, row_bytes):
+        """The bound kernels' least work: the rows, the queries' PAAs and
+        the region tables read once, the [Q, N] output written once; per
+        pair w x (2 subs, 2 max, add, mul), the w - 1 adds that sum the
+        terms (the first add is onto 0.f and changes no bits) and the
+        scale: 7w."""
+        return bound_ms(n_ * row_bytes + nq_ * w * 4 + 2 * card * 4
+                        + nq_ * n_ * 4, nq_ * n_ * 7 * w)
     for label, b_ in (("seed", bound), ("tight", bound_t)):
         print(f"scan_verify device operations per call ({label} bound, "
               f"torch.profiler over {PROFILED_CALLS} calls):")
@@ -856,8 +866,7 @@ def main() -> int:
             plain=lambda: ref.mindist_batch_ref(q_paas, codes_leaf, lower,
                                                 upper, scale),
             library=None,
-            bound=bound_ms(nl * w + nq * w * 4 + 2 * 256 * 4 + nq * nl * 4,
-                           nq * nl * (7 * w + 1))),
+            bound=md_bound(nq, nl, w)),
         "batch_euclid": dict(
             source="src/repro_torch/kernels/csrc/batch_euclid.cu",
             replaces="src/repro/kernels/batch_euclid.py:45",
@@ -968,8 +977,7 @@ def main() -> int:
             library=None,
             # the executor copies the rows in just before: warm in L2
             cold=False,
-            bound=bound_ms(npk * pw + nq * w * 4 + 2 * card * 4
-                           + nq * npk * 4, nq * npk * (7 * w + 1))),
+            bound=md_bound(nq, npk, pw)),
         "unpack_mindist_hot": dict(
             source="src/repro_torch/kernels/csrc/unpack_mindist.cu",
             replaces="src/repro/kernels/unpack_mindist.py:83",
@@ -979,8 +987,7 @@ def main() -> int:
             plain=lambda: ref.mindist_batch_packed_ref(
                 q_paas, pk_hot, lower, upper, scale, w=w, b=cfg.bits),
             library=None,
-            bound=bound_ms(npk * pw + nq * w * 4 + 2 * card * 4
-                           + nq * npk * 4, nq * npk * (7 * w + 1))),
+            bound=md_bound(nq, npk, pw)),
     }
     launches = {}
     for phase in (build_launches, eager_launches, fused_launches,
@@ -1022,8 +1029,7 @@ def main() -> int:
     ms1 = timer.ms(lambda: ops.mindist(q_paas[0], codes_leaf, cfg))
     plain1 = timer.ms(lambda: ref.mindist_batch_ref(
         q_paas[:1], codes_leaf, lower, upper, scale), reps=PLAIN_TIMED)
-    b1, by1 = bound_ms(nl * w + w * 4 + 2 * 256 * 4 + nl * 4,
-                       nl * (7 * w + 1))
+    b1, by1 = md_bound(1, nl, w)
     print(f"kernel mindist_batch at Q=1 (ops.mindist) [N={nl} rows, L2 "
           f"cold]: {ms1:.4f} ms (plain {plain1:.4f} ms, bound {b1:.4f} ms "
           f"by {by1})")
