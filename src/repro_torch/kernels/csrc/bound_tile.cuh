@@ -2,12 +2,12 @@
 // lower bound of every (query, row) pair of a launch, q_paas [Q, w] f32 x a
 // row's w symbols -> out [Q, N] f32.
 //
-// Layout of a launch (the wrapper's launch plan, kernels/mindist_batch.py):
-// a block is `rows` threads (whole warps), one row each, and a tile of QT
-// queries that every thread of the block computes, so a block covers rows
-// x QT pairs and the grid (row tiles, query tiles) covers every pair once.
-// Lanes run along the rows, so each of a thread's QT stores is coalesced
-// across its warp.
+// Layout of a launch: a block is kRows threads, one row each, and a tile of
+// QT queries that every thread of the block computes, so a block covers
+// kRows x QT pairs and the grid (row tiles, query tiles) covers every pair
+// once.  The wrapper's launch plan (kernels/mindist_batch.py) picks QT and
+// the grid.  Lanes run along the rows, so each of a thread's QT stores is
+// coalesced across its warp.
 //
 // A thread reads a symbol once per segment, looks up its region pair
 // {lo, hi} with one 8-byte shared load, and adds that segment's term to its
@@ -16,22 +16,30 @@
 // with mindist_term (common.cuh) and is scaled last, so no tile, layout or
 // source changes a bit.
 //
-// Shared memory (at most 48 KB for every w <= 64, b <= 8, so no kernel ever
-// needs cudaFuncSetAttribute): the [256] float2 region table, the block's
-// query PAAs query-minor ([w][QT]: a segment's QT values are one or two
-// vector loads, the same address across the block), and for Src::kStaged
-// the block's packed rows at a padded stride of an odd number of words, so
-// the 32 lanes of a warp read 32 different banks.
+// Shared memory, static and sized for the widest word (at most 6912 B, far
+// below the 48 KB a block has without cudaFuncSetAttribute): the [256]
+// float2 region table, the block's query PAAs query-minor ([w][QT]: a
+// segment's QT values are one or two vector loads, the same address across
+// the block), and for Src::kStaged the block's packed rows at a stride of
+// kStageStride words, an odd number, so the 32 lanes of a warp read 32
+// different banks.
 #pragma once
 
 #include "common.cuh"
 
 namespace coconut {
 
-constexpr int kTabEntries = 256;                // 2^b region pairs, b <= 8
-constexpr int kTabBytes = kTabEntries * 8;      // float2 {lo, hi} each
-constexpr int kBoundSmem = 48 * 1024;           // the default; no opt-in
-constexpr int kMaxBoundThreads = 256;
+constexpr int kTabEntries = 256;       // 2^b region pairs, b <= 8
+constexpr int kRows = 64;              // rows (threads) per block, two warps
+constexpr int kMaxQT = 4;              // queries per thread
+// staged packed row stride in 4-byte words: odd, and holds the widest
+// packed row that is staged (w = 64 at b = 7: 56 bytes)
+constexpr int kStageStride = 15;
+static_assert(kStageStride % 2 == 1 && 4 * kStageStride >= (kMaxW * 7 + 7) / 8,
+              "a staged row must fit its stride, and the stride be odd");
+static_assert(kTabEntries * 8 + kMaxW * kMaxQT * 4 + kRows * kStageStride * 4
+                  <= 48 * 1024,
+              "the bound tile must fit the default shared memory");
 
 // Where a thread reads its row's symbols.
 enum class Src {
@@ -50,12 +58,7 @@ struct BoundArgs {
   long long n;
   int w, b, pw, card;
   float scale;
-  int stride;            // staged row stride in 4-byte words (kStaged)
 };
-
-__host__ __device__ inline int bound_q_bytes(int w, int qt) {
-  return (4 * w * qt + 15) / 16 * 16;
-}
 
 // The 4 bytes at p, little-endian, from aligned words (two when p is not
 // aligned).  p lies before end; the second word is read only when it starts
@@ -99,17 +102,14 @@ __device__ __forceinline__ void add_segment(float (&acc)[QT], float2 t,
 
 // Tag names the entry point that launches the kernel (its profiler name).
 template <typename Tag, int QT, Src S>
-__global__ void __launch_bounds__(kMaxBoundThreads)
-bound_kernel(BoundArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* s_tab = reinterpret_cast<float2*>(smem);
-  auto* s_q = reinterpret_cast<float*>(smem + kTabBytes);
-  auto* s_pk = reinterpret_cast<uint32_t*>(smem + kTabBytes +
-                                           bound_q_bytes(a.w, QT));
-  const int rows = blockDim.x;
+__global__ void __launch_bounds__(kRows) bound_kernel(BoundArgs a) {
+  constexpr bool kStaged = S == Src::kStaged;
+  __shared__ float2 s_tab[kTabEntries];
+  __shared__ __align__(16) float s_q[kMaxW * QT];
+  __shared__ uint32_t s_pk[kStaged ? kRows * kStageStride : 1];
   const int tid = threadIdx.x;
   const int q0 = blockIdx.y * QT;
-  const long long row0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
   const long long row = row0 + threadIdx.x;
   const bool live = row < a.n;
   const uint8_t* src = a.rows + row * a.w;   // in-place sources only
@@ -122,13 +122,13 @@ bound_kernel(BoundArgs a) {
   }
   // the fills: every read is issued before any shared store, so a block
   // waits for one trip to memory rather than one per loop step (a thread
-  // holds at most kTabPer table entries and kQPer PAAs, since rows >= 32)
-  constexpr int kTabPer = kTabEntries / kWarp;
-  constexpr int kQPer = QT * kMaxW / kWarp;
+  // holds at most kTabPer table entries and kQPer PAAs)
+  constexpr int kTabPer = kTabEntries / kRows;
+  constexpr int kQPer = QT * kMaxW / kRows;
   float2 tab[kTabPer];
 #pragma unroll
   for (int u = 0; u < kTabPer; ++u) {
-    const int i = tid + u * rows;
+    const int i = tid + u * kRows;
     if (i < a.card)
       tab[u] = make_float2(__ldg(a.lower + i), __ldg(a.upper + i));
   }
@@ -139,32 +139,32 @@ bound_kernel(BoundArgs a) {
   float qv[kQPer];
 #pragma unroll
   for (int u = 0; u < kQPer; ++u) {
-    const int i = tid + u * rows;
+    const int i = tid + u * kRows;
     qv[u] = i < nqb * a.w ? __ldg(qsrc + i) : 0.f;
   }
 #pragma unroll
   for (int u = 0; u < kTabPer; ++u) {
-    const int i = tid + u * rows;
+    const int i = tid + u * kRows;
     if (i < a.card) s_tab[i] = tab[u];
   }
 #pragma unroll
   for (int u = 0; u < kQPer; ++u) {
-    const int i = tid + u * rows;
+    const int i = tid + u * kRows;
     if (i < QT * a.w) {
       const int k = i / a.w;
       s_q[(i - k * a.w) * QT + k] = qv[u];
     }
   }
-  if constexpr (S == Src::kStaged) {
-    const int tr = static_cast<int>(min(static_cast<long long>(rows),
+  if constexpr (kStaged) {
+    const int tr = static_cast<int>(min(static_cast<long long>(kRows),
                                         a.n - row0));
     const int wpr = (a.pw + 3) >> 2;
     const uint8_t* base = a.rows + row0 * a.pw;
     const uint8_t* end = a.rows + a.n * a.pw;
-    for (int i = tid; i < tr * wpr; i += rows) {
+    for (int i = tid; i < tr * wpr; i += kRows) {
       const int r = i / wpr;
       const int k = i - r * wpr;
-      s_pk[r * a.stride + k] = load_word(base + r * a.pw + 4 * k, end);
+      s_pk[r * kStageStride + k] = load_word(base + r * a.pw + 4 * k, end);
     }
   }
   __syncthreads();
@@ -190,7 +190,7 @@ bound_kernel(BoundArgs a) {
     for (int j = 0; j < a.w; ++j)
       add_segment<QT>(acc, s_tab[__ldg(src + j)], s_q + j * QT);
   } else {
-    const uint32_t* pk = s_pk + tid * a.stride;
+    const uint32_t* pk = s_pk + tid * kStageStride;
     const auto byte = [pk](int m) {
       return static_cast<int>((pk[m >> 2] >> (8 * (m & 3))) & 0xff);
     };
@@ -206,49 +206,41 @@ bound_kernel(BoundArgs a) {
 }
 
 template <typename Tag, Src S>
-cudaError_t launch_src(const BoundArgs& a, int qt, dim3 grid, int block,
-                       int smem, cudaStream_t stream) {
+cudaError_t launch_src(const BoundArgs& a, int qt, dim3 grid,
+                       cudaStream_t stream) {
   switch (qt) {
-    case 1: bound_kernel<Tag, 1, S><<<grid, block, smem, stream>>>(a); break;
-    case 2: bound_kernel<Tag, 2, S><<<grid, block, smem, stream>>>(a); break;
-    default: bound_kernel<Tag, 4, S><<<grid, block, smem, stream>>>(a); break;
+    case 1: bound_kernel<Tag, 1, S><<<grid, kRows, 0, stream>>>(a); break;
+    case 2: bound_kernel<Tag, 2, S><<<grid, kRows, 0, stream>>>(a); break;
+    default: bound_kernel<Tag, 4, S><<<grid, kRows, 0, stream>>>(a); break;
   }
   return cudaGetLastError();
 }
 
-// One launch of the plan (rows, qt, grid, smem) over a with symbols from
-// src.  What guards memory is checked here: whole warps along the rows, at
-// most kMaxBoundThreads threads, a grid that covers every pair, the
-// staged stride, and shared memory that holds the layout within the default
-// 48 KB.  Returns cudaErrorInvalidValue (and touches no runtime state) on a
-// plan that breaks one.
+// One launch of the plan (qt, grid) over a with symbols from src.  What
+// guards memory is checked here: a grid that covers every pair and, for
+// staged rows, a packed width that fits the stride.  Returns
+// cudaErrorInvalidValue (and touches no runtime state) on a plan that
+// breaks one.
 template <typename Tag>
-cudaError_t launch_bound(const BoundArgs& a, Src src, int rows, int qt,
-                         int grid_x, int grid_y, int smem,
-                         cudaStream_t stream) {
+cudaError_t launch_bound(const BoundArgs& a, Src src, int qt, int grid_x,
+                         int grid_y, cudaStream_t stream) {
   const bool staged = src == Src::kStaged;
-  const long long need = kTabBytes + bound_q_bytes(a.w, qt) +
-                         (staged ? 4LL * a.stride * rows : 0);
   const bool ok =
       a.nq >= 1 && a.n >= 1 && a.w >= 1 && a.w <= kMaxW && a.card >= 1 &&
-      a.card <= kTabEntries && rows >= kWarp && rows % kWarp == 0 &&
-      rows <= kMaxBoundThreads &&
-      (qt == 1 || qt == 2 || qt == 4) && grid_x >= 1 &&
-      static_cast<long long>(grid_x) * rows >= a.n && grid_y >= 1 &&
-      grid_y <= 65535 && static_cast<long long>(grid_y) * qt >= a.nq &&
-      (!staged || (a.b >= 1 && a.b < 8 && a.pw == (a.w * a.b + 7) / 8 &&
-                   a.stride >= (a.pw + 3) / 4)) &&
-      need <= smem && smem <= kBoundSmem;
+      a.card <= kTabEntries && (qt == 1 || qt == 2 || qt == 4) &&
+      grid_x >= 1 && static_cast<long long>(grid_x) * kRows >= a.n &&
+      grid_y >= 1 && grid_y <= 65535 &&
+      static_cast<long long>(grid_y) * qt >= a.nq &&
+      (!staged || (a.b >= 1 && a.b < 8 && a.pw == (a.w * a.b + 7) / 8));
   if (!ok) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(grid_y));
-  const int block = rows;
   switch (src) {
     case Src::kVec16:
-      return launch_src<Tag, Src::kVec16>(a, qt, grid, block, smem, stream);
+      return launch_src<Tag, Src::kVec16>(a, qt, grid, stream);
     case Src::kStaged:
-      return launch_src<Tag, Src::kStaged>(a, qt, grid, block, smem, stream);
+      return launch_src<Tag, Src::kStaged>(a, qt, grid, stream);
     default:
-      return launch_src<Tag, Src::kBytes>(a, qt, grid, block, smem, stream);
+      return launch_src<Tag, Src::kBytes>(a, qt, grid, stream);
   }
 }
 

@@ -20,8 +20,8 @@
 //     the window at bit 8j is row[j]), so the rows are read in place exactly
 //     as mindist_batch reads codes, with no staging.
 //   * b < 8: the block copies its rows' packed bytes into shared memory in
-//     4-byte words, each row at a stride of an odd number of words so a
-//     warp's 32 rows sit in 32 banks; a thread then extracts symbol j with
+//     4-byte words, each row at a stride of 15 words (odd, so a warp's 32
+//     rows sit in 32 banks); a thread then extracts symbol j with
 //     unpack_symbol (common.cuh): MSB first through the two-byte window at
 //     bit j * b, reading zero instead of any byte past its row (the TPU
 //     kernel padded one zero byte onto every row for this).
@@ -37,20 +37,19 @@ struct UnpackMindist {};   // the kernel's name in a profile
 // C entry point.  Returns a cudaError_t (0 on success).  Requires nq >= 1,
 // n >= 1, 1 <= w <= 64, 1 <= b <= 8, pw = ceil(w * b / 8), card = 2^b,
 // packed rows contiguous, and the wrapper's launch plan as for
-// coconut_mindist_batch; for b < 8 also stride, the staged row stride in
-// 4-byte words (>= ceil(pw / 4)), which smem must hold for rows rows.
+// coconut_mindist_batch.
 extern "C" int coconut_unpack_mindist(const float* q_paas, const uint8_t* packed,
                                       const float* lower, const float* upper,
                                       float* out, int nq, long long n, int w,
                                       int b, int pw, int card, float scale,
-                                      int rows, int qt, int grid_x, int grid_y,
-                                      int stride, int smem, void* stream) {
+                                      int qt, int grid_x, int grid_y,
+                                      void* stream) {
   using namespace coconut;
   if (b < 1 || b > 8 || pw != (w * b + 7) / 8 || card != 1 << b)
     return cudaErrorInvalidValue;
   const BoundArgs a{q_paas, packed, lower, upper, out, nq, n, w, b, pw, card,
-                    scale, stride};
+                    scale};
   const Src src = b == 8 ? in_place_src(packed, w) : Src::kStaged;
-  return launch_bound<UnpackMindist>(a, src, rows, qt, grid_x, grid_y, smem,
+  return launch_bound<UnpackMindist>(a, src, qt, grid_x, grid_y,
                                      static_cast<cudaStream_t>(stream));
 }

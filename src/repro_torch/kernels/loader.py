@@ -50,7 +50,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "coconut_mindist_batch": [_P] * 5 + [_I, _LL, _I, _I, _F] + [_I] * 5
+    "coconut_mindist_batch": [_P] * 5 + [_I, _LL, _I, _I, _F] + [_I] * 3
     + [_P],
     "coconut_euclid_cross": [_P, _P, _P] + [_I] * 8 + [_P],
     "coconut_euclid_gather": [_P, _P, _P, _P, _I, _LL, _I, _P],
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "coconut_sax_summarize": [_P] * 4 + [_LL, _I, _I, _I, _I, _P],
     "coconut_zorder": [_P, _P, _LL, _I, _I, _I, _P],
     "coconut_unpack_mindist": [_P] * 5 + [_I, _LL, _I, _I, _I, _I, _F]
-    + [_I] * 6 + [_P],
+    + [_I] * 3 + [_P],
 }
 
 

@@ -8,7 +8,8 @@ goes to the plain twin :func:`repro_torch.kernels.ref.mindist_batch_ref`.
 The launch plan of the bound tile (``csrc/bound_tile.cuh``), which this
 kernel and ``unpack_mindist`` share, is computed here by
 :func:`launch_plan`, so that it can be checked without a card; the kernels
-read it from their arguments.
+read it from their arguments.  The tile's rows per block (``ROWS``) and its
+shared memory are constants of the kernel.
 """
 from __future__ import annotations
 
@@ -23,22 +24,15 @@ __all__ = ["mindist_batch", "launch_plan", "LaunchPlan"]
 
 NAME = "mindist_batch"
 MAX_W = 64
-LANES = 32
 SMS = 132                 # streaming multiprocessors of an H100
-ROWS = 64                 # rows per block: one thread each, two warps
+ROWS = 64                 # rows per block, one thread each: kRows in C
 MAX_QT = 4                # queries per thread, unrolled in registers
-TABLE_BYTES = 256 * 8     # the float2 {lo, hi} region table, b <= 8
-SMEM_LIMIT = 48 * 1024    # the default dynamic shared memory of a block
 MAX_GRID_Y = 65_535
 
 
 class LaunchPlan(NamedTuple):
-    rows: int        # rows per block, one thread each (whole warps)
     qt: int          # queries per block, each thread computing all of them
     grid: tuple      # (row tiles, query tiles)
-    stride: int      # staged packed row stride in 4-byte words (odd, so a
-    #                  warp's rows fall in 32 banks); 0 = rows read in place
-    smem: int        # shared-memory bytes of a block
 
 
 def _ceil(a: int, b: int) -> int:
@@ -46,30 +40,22 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def launch_plan(nq: int, n: int, w: int, pw: int = 0) -> LaunchPlan:
+def launch_plan(nq: int, n: int, w: int) -> LaunchPlan:
     """The launch of one bound call over ``nq`` queries and ``n`` rows of
     ``w`` symbols: blocks of ``ROWS`` threads, one row each, every thread
     computing ``qt`` queries (the next power of two of Q, at most 4; more
     queries go to ``blockIdx.y``), halved while the grid has fewer blocks
     than the card has SMs, so the main path's 64 x 2000 launch has 32 x 16
-    = 512 blocks.  ``pw`` is the packed bytes per row that a block stages
-    in shared memory (``unpack_mindist`` at b < 8), 0 when the rows are
-    read in place, one byte a symbol.  Raises on a shape the kernels do
-    not take."""
-    if not (nq >= 1 and 1 <= n < 2 ** 31 and 1 <= w <= MAX_W
-            and 0 <= pw <= w):
-        raise ValueError(f"{NAME}: no kernel for Q={nq} N={n} w={w} "
-                         f"pw={pw}")
-    rows = ROWS
+    = 512 blocks, and a launch of 2 to 16 queries over one leaf spreads
+    over more SMs.  Raises on a shape the kernels do not take."""
+    if not (nq >= 1 and 1 <= n < 2 ** 31 and 1 <= w <= MAX_W):
+        raise ValueError(f"{NAME}: no kernel for Q={nq} N={n} w={w}")
     qt = min(MAX_QT, 1 << (nq - 1).bit_length())
-    while qt > 1 and _ceil(n, rows) * _ceil(nq, qt) < SMS:
+    while qt > 1 and _ceil(n, ROWS) * _ceil(nq, qt) < SMS:
         qt //= 2
     if _ceil(nq, qt) > MAX_GRID_Y:
         raise ValueError(f"{NAME}: no kernel for Q={nq}")
-    stride = ((pw + 3) // 4) | 1 if pw else 0
-    smem = TABLE_BYTES + _ceil(4 * w * qt, 16) * 16 + 4 * stride * rows
-    return LaunchPlan(rows, qt, (_ceil(n, rows), _ceil(nq, qt)), stride,
-                      smem)
+    return LaunchPlan(qt, (_ceil(n, ROWS), _ceil(nq, qt)))
 
 
 def mindist_batch(q_paas: torch.Tensor, codes: torch.Tensor,
@@ -99,8 +85,7 @@ def mindist_batch(q_paas: torch.Tensor, codes: torch.Tensor,
         rc = lib.coconut_mindist_batch(
             q_paas.data_ptr(), codes.data_ptr(), lower.data_ptr(),
             upper.data_ptr(), out.data_ptr(), nq, n, w, card, float(scale),
-            plan.rows, plan.qt, *plan.grid, plan.smem,
-            loader.stream_ptr(dev))
+            plan.qt, *plan.grid, loader.stream_ptr(dev))
     loader.LAUNCHES[NAME] += 1
     loader.check(NAME, rc)
     return out

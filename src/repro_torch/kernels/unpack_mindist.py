@@ -46,14 +46,13 @@ def unpack_mindist(q_paas: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
     if nq == 0 or n == 0:
         return out
-    plan = launch_plan(nq, n, w, 0 if b == 8 else pw)
+    plan = launch_plan(nq, n, w)
     lib = loader.library()
     with torch.cuda.device(dev):
         rc = lib.coconut_unpack_mindist(
             q_paas.data_ptr(), packed.data_ptr(), lower.data_ptr(),
             upper.data_ptr(), out.data_ptr(), nq, n, w, b, pw, card,
-            float(scale), plan.rows, plan.qt, *plan.grid, plan.stride,
-            plan.smem, loader.stream_ptr(dev))
+            float(scale), plan.qt, *plan.grid, loader.stream_ptr(dev))
     loader.LAUNCHES[NAME] += 1
     loader.check(NAME, rc)
     return out

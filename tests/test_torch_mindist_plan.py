@@ -2,13 +2,14 @@
 
 ``mindist_batch`` and ``unpack_mindist`` share one CUDA tile
 (``csrc/bound_tile.cuh``) whose launch is computed in Python by
-``repro_torch.kernels.mindist_batch.launch_plan``: a block of ``rows``
-threads, each holding one row and the block's ``qt`` queries, and the grid
-over row and query tiles.  These tests
-hold the plan to what the kernel needs (every (query, row) pair computed
-once, whole warps along the rows, at most 48 KB of shared memory so no
-``cudaFuncSetAttribute``, a staged row stride whose 32 lanes read 32
-banks), and check that shapes the kernels do not take are refused.
+``repro_torch.kernels.mindist_batch.launch_plan``: a block of ``ROWS``
+threads (the kernel's ``kRows``), each holding one row and the block's
+``qt`` queries, and the grid over row and query tiles.  These tests hold
+the plan and the kernel's constants, read from its source, to what the
+kernel needs (every (query, row) pair computed once, whole warps along the
+rows, at most 48 KB of shared memory so no ``cudaFuncSetAttribute``, a
+staged row stride whose 32 lanes read 32 banks), and check that shapes the
+kernels do not take are refused.
 
 Numpy models of the kernel's arithmetic are held against the plain twins
 bit for bit (the tolerance is none: both do the same float32 operations in
@@ -20,6 +21,9 @@ unpack.
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,9 +31,16 @@ import torch
 from repro_torch.core import summarization as S
 from repro_torch.kernels import mindist_batch as mb
 from repro_torch.kernels import ref
-from repro_torch.kernels.mindist_batch import (LANES, MAX_QT, ROWS, SMS,
-                                               SMEM_LIMIT, launch_plan)
+from repro_torch.kernels.mindist_batch import (MAX_QT, MAX_W, ROWS, SMS,
+                                               launch_plan)
 from repro_torch.storage.packing import pack_codes
+
+LANES = 32
+CSRC = Path(mb.__file__).parent / "csrc"
+# the kernel's constants, as its source declares them
+KC = {k: int(v) for f in ("common.cuh", "bound_tile.cuh") for k, v in
+      re.findall(r"constexpr int (k\w+) = (\d+);", (CSRC / f).read_text())}
+STRIDE = KC["kStageStride"]
 
 QS = (1, 3, 16, 17, 64, 65)
 # every edge of one and two row tiles, and a leaf and a bit
@@ -44,13 +55,13 @@ def _ceil(a, b):
 
 def _pairs_of(p, nq, n):
     """Each (query, row) pair as the kernel computes it: thread tx of
-    block (bx, by) holds row bx * rows + tx and queries by * qt + i for
+    block (bx, by) holds row bx * ROWS + tx and queries by * qt + i for
     i < qt; pairs past Q or N are not stored."""
     count = np.zeros((nq, n), dtype=np.int64)
-    tx = np.arange(p.rows)
+    tx = np.arange(ROWS)
     for by in range(p.grid[1]):
         for bx in range(p.grid[0]):
-            r = bx * p.rows + tx
+            r = bx * ROWS + tx
             for i in range(p.qt):
                 q = by * p.qt + i
                 ok = (r < n) & (q < nq)
@@ -68,19 +79,20 @@ def test_plan_covers_every_pair_once(nq):
 @pytest.mark.parametrize("nq", QS)
 def test_plan_shape_of_a_block(nq):
     """Whole warps of one row each (a block shares its queries, so their
-    PAAs are broadcast reads), at most 256 threads, and a query tile that
-    is the next power of two of Q up to 4, halved while the grid has
-    fewer blocks than the card has SMs."""
+    PAAs are broadcast reads), the kernel's own row tile and widest word,
+    and a query tile that is the next power of two of Q up to 4, halved
+    while the grid has fewer blocks than the card has SMs."""
+    assert ROWS == KC["kRows"] and ROWS % LANES == 0
+    assert MAX_QT == KC["kMaxQT"] and MAX_W == KC["kMaxW"]
     for n in NS:
         p = launch_plan(nq, n, 16)
-        assert p.rows % LANES == 0 and p.rows <= 256
         assert p.qt in (1, 2, 4)
         full = min(MAX_QT, 1 << (nq - 1).bit_length())
         assert p.qt <= full
-        blocks = _ceil(n, p.rows) * _ceil(nq, p.qt)
+        blocks = _ceil(n, ROWS) * _ceil(nq, p.qt)
         assert p.qt == full or blocks < 2 * SMS
         assert p.qt == 1 or blocks >= SMS
-        assert p.grid == (_ceil(n, p.rows), _ceil(nq, p.qt))
+        assert p.grid == (_ceil(n, ROWS), _ceil(nq, p.qt))
 
 
 def test_plan_fills_the_card_at_the_main_path():
@@ -88,7 +100,7 @@ def test_plan_fills_the_card_at_the_main_path():
     design launched 32); a 175-row launch takes one query a thread."""
     p = launch_plan(64, 2000, 16)
     assert p.grid[0] * p.grid[1] >= SMS
-    assert (p.rows, p.qt, p.stride) == (64, 4, 0)
+    assert (ROWS, p.qt) == (64, 4)
     assert p.grid == (32, 16)
     assert launch_plan(64, 175, 16).grid == (3, 64)
     assert launch_plan(1, 2000, 16).grid == (32, 1)
@@ -96,13 +108,17 @@ def test_plan_fills_the_card_at_the_main_path():
 
 @pytest.mark.parametrize("w", (1, 8, 16, 64))
 def test_plan_fits_default_shared_memory(w):
+    """The kernel's static shared arrays: the [256] float2 region table,
+    kMaxW x qt query PAAs and, for staged rows (b < 8), kRows rows of
+    kStageStride words, which hold the packed row."""
     for b in range(1, 9):
-        pw = 0 if b == 8 else _ceil(w * b, 8)
+        pw = _ceil(w * b, 8)
         for nq in QS:
-            p = launch_plan(nq, 2000, w, pw)
-            assert p.smem == 256 * 8 + _ceil(4 * w * p.qt, 16) * 16 \
-                + 4 * p.stride * p.rows
-            assert p.smem <= SMEM_LIMIT == 48 * 1024
+            p = launch_plan(nq, 2000, w)
+            staged = 4 * KC["kRows"] * STRIDE if b < 8 else 0
+            smem = KC["kTabEntries"] * 8 + 4 * KC["kMaxW"] * p.qt + staged
+            assert smem <= 48 * 1024
+            assert b == 8 or 4 * STRIDE >= pw
 
 
 @pytest.mark.parametrize("w", (1, 8, 16, 64))
@@ -110,15 +126,14 @@ def test_plan_staged_stride_is_conflict_free(w):
     """A staged row takes an odd number of 4-byte words, at least its
     bytes: the 32 lanes of a warp read byte m of rows r..r+31 from 32
     different banks, for every m."""
+    assert STRIDE % 2 == 1
     for b in range(1, 8):
         pw = _ceil(w * b, 8)
-        p = launch_plan(64, 2000, w, pw)
-        assert p.stride % 2 == 1 and 4 * p.stride >= pw
+        assert 4 * STRIDE >= pw
         lanes = np.arange(LANES)
         for m in range(pw):
-            banks = (lanes * p.stride + m // 4) % 32
+            banks = (lanes * STRIDE + m // 4) % 32
             assert len(set(banks)) == 32, (w, b, m)
-    assert launch_plan(64, 2000, w).stride == 0
 
 
 def test_plan_cache_is_keyed_on_its_arguments():
@@ -131,9 +146,9 @@ def test_plan_cache_is_keyed_on_its_arguments():
 
 @pytest.mark.parametrize("bad", [
     dict(nq=0), dict(n=0), dict(n=2 ** 31), dict(w=0), dict(w=65),
-    dict(pw=17), dict(nq=65_536 * MAX_QT)])
+    dict(nq=-1), dict(nq=65_536 * MAX_QT)])
 def test_plan_refuses_shapes_the_kernels_do_not_take(bad):
-    args = dict(nq=64, n=2000, w=16, pw=0)
+    args = dict(nq=64, n=2000, w=16)
     args.update(bad)
     with pytest.raises(ValueError):
         launch_plan(**args)
@@ -163,7 +178,7 @@ def _tile_model(q, codes, lower, upper, scale, p):
     zero = F32(0)
     for by in range(p.grid[1]):
         for bx in range(p.grid[0]):
-            rows = np.arange(bx * p.rows, min((bx + 1) * p.rows, n))
+            rows = np.arange(bx * ROWS, min((bx + 1) * ROWS, n))
             qs = [by * p.qt + i for i in range(p.qt)]
             acc = [np.zeros(len(rows), F32) for _ in qs]
             for j in range(w):
@@ -202,7 +217,7 @@ def _staged_model(packed_flat, off, n, w, b, p):
     start at ``off`` within aligned 4-byte words; each block copies word k
     of row r (the 4 bytes at r * pw + 4k, from one or two aligned words,
     funnel-shifted; a second word starting past the array reads 0) to
-    r * stride + k, then symbol j is read through the two-byte window at
+    r * kStageStride + k, then symbol j is read through the two-byte window at
     bit j * b, with a zero byte past the row."""
     pw = _ceil(w * b, 8)
     end = off + n * pw
@@ -210,9 +225,9 @@ def _staged_model(packed_flat, off, n, w, b, p):
     words = np.frombuffer(raw + b"\0" * (4 + (-len(raw)) % 4), np.uint32)
     codes = np.zeros((n, w), np.uint8)
     for bx in range(p.grid[0]):
-        r0 = bx * p.rows
-        tr = min(p.rows, n - r0)
-        smem = np.zeros(p.rows * p.stride, np.uint32)
+        r0 = bx * ROWS
+        tr = min(ROWS, n - r0)
+        smem = np.zeros(ROWS * STRIDE, np.uint32)
         wpr = _ceil(pw, 4)
         for i in range(tr * wpr):
             r, k = divmod(i, wpr)
@@ -220,9 +235,9 @@ def _staged_model(packed_flat, off, n, w, b, p):
             lo = int(words[addr // 4])
             sh = addr % 4
             hi = int(words[addr // 4 + 1]) if 4 * (addr // 4 + 1) < end else 0
-            smem[r * p.stride + k] = ((hi << 32 | lo) >> (8 * sh)) & 0xFFFFFFFF
+            smem[r * STRIDE + k] = ((hi << 32 | lo) >> (8 * sh)) & 0xFFFFFFFF
         for r in range(tr):
-            row = smem[r * p.stride:(r + 1) * p.stride]
+            row = smem[r * STRIDE:(r + 1) * STRIDE]
 
             def byte(m):
                 return (int(row[m >> 2]) >> (8 * (m & 3))) & 0xFF
@@ -244,7 +259,7 @@ def test_staged_unpack_model_equals_twin(w):
         codes = rng.integers(0, 1 << b, (n, w), dtype=np.uint8)
         packed = pack_codes(codes, b)
         pw = packed.shape[1]
-        p = launch_plan(8, n, w, pw)
+        p = launch_plan(8, n, w)
         for off in range(4):             # the view's byte offset in a word
             flat = np.concatenate([rng.integers(0, 256, off, np.uint8),
                                    packed.reshape(-1)])
