@@ -32,56 +32,17 @@ Run from the root of a checkout:
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
 import json
 import statistics
-import sys
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from compare_common import event_us, host_us, load
+
 SHAPES = ((64, 1183, 256), (64, 175, 256), (1, 2000, 256),
           (64, 1183, 1024), (64, 175, 4096))
-HOST_Q, HOST_L, FIXED_ROWS, FIXED_CALLS, EVENT_REPS = 64, 256, 175, 200, 200
-
-
-def load(src: str, alias: str):
-    """``kernels.batch_euclid`` and ``kernels.ref`` of the package under
-    ``src``, imported as the package ``alias``."""
-    pkg = Path(src).resolve() / "repro_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{alias}.kernels.batch_euclid"),
-            importlib.import_module(f"{alias}.kernels.ref"))
-
-
-def event_us(fn) -> float:
-    times = []
-    for _ in range(EVENT_REPS):
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) * 1e3)
-    return statistics.median(times)
-
-
-def host_us(fn, calls) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for a in calls:
-        fn(*a)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / len(calls) * 1e6
+HOST_Q, HOST_L, FIXED_ROWS, FIXED_CALLS = 64, 256, 175, 200
 
 
 def main() -> int:
@@ -105,7 +66,10 @@ def main() -> int:
                     generator=gen)
     calls = {"fixed": [(q, x[:FIXED_ROWS])] * FIXED_CALLS,
              "sequence": [(q, x[:r]) for r in rows]}
-    trees = [load(s, f"tree{i}_repro_torch") for i, s in enumerate(args.src)]
+    trees = [tuple(load(s, f"tree{i}_repro_torch",
+                        {"be": "kernels.batch_euclid",
+                         "ref": "kernels.ref"}).values())
+             for i, s in enumerate(args.src)]
     out = []
     for be, ref in trees:
         bits = {}

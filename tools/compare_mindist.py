@@ -13,86 +13,49 @@ one process:
   queued behind a 1 ms device sleep so that the host's launch cost is not
   in the time (as ``chip_smoke.py`` times kernels), L2 warm, at Q x N x w
   = 64 x 2000 x 16 (one leaf of the main path), 64 x 175 x 16, 1 x 2000 x
-  16 (``ops.mindist``) and 64 x 2000 x 64, for ``mindist_batch`` on codes
-  and ``unpack_mindist`` on their packed rows at b = 8, and at 64 x 2000 x
-  16 also ``unpack_mindist`` with the L2 flushed before each launch (a
-  hot-tier block) and at b = 4 (staged packed rows);
+  16 (``ops.mindist``) and 64 x 2000 x 64 (or the ``--shapes`` given), for
+  ``mindist_batch`` on codes and ``unpack_mindist`` on their packed rows
+  at b = 8, and at the first shape also ``unpack_mindist`` with the L2
+  flushed before each launch (a hot-tier block) and at b = 4 (staged
+  packed rows);
 * ``floor_us``: the same timing of a one-element ``fill_``, the least
   that a launch reads by this method;
 * ``host_us``: each wrapper's wall time per call over 200 calls in a row
-  at 64 x 2000 x 16 (the kernel is shorter than the host path, so this is
-  the host's time).
+  at the first shape (the kernel is shorter than the host path, so this
+  is the host's time).
 
 Trees alternate A, B, B, A in each of ``--reps`` rounds; each number is
 the median over the rounds, and every round's value is printed too.
-``--plans rows,qt ...`` also times the first tree's kernels under
-each of those launch plans in place of its own (a tree whose wrappers
-take a launch plan), at the same shapes, for choosing the tile.
-Prints one JSON line per tree (and per plan) and the card's name.
+``--qt 1 2 4`` also times the first tree's kernels with each of those
+query tiles in place of its plan's own, at the same shapes (for judging
+the plan's choice of tile).  Prints one JSON line per tree (and per
+tile) and the card's name.
 
 Run from the root of a checkout:
 
     python3 tools/compare_mindist.py --src src path/to/other/checkout/src
+    python3 tools/compare_mindist.py --src src --qt 1 2 4 \
+        --shapes 2,2000,16 4,2000,16 8,2000,16 16,2000,16
 """
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
 import json
 import statistics
-import sys
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from compare_common import event_us, host_us, load
+
 SHAPES = ((64, 2000, 16), (64, 175, 16), (1, 2000, 16), (64, 2000, 64))
-MAIN = SHAPES[0]
-HOST_CALLS, EVENT_REPS, FLUSH_BYTES = 200, 200, 256 << 20
+HOST_CALLS, FLUSH_BYTES = 200, 256 << 20
+MODULES = {"mb": "kernels.mindist_batch", "um": "kernels.unpack_mindist",
+           "ref": "kernels.ref", "S": "core.summarization",
+           "pack": "storage.packing"}
 
 
-def load(src: str, alias: str) -> dict:
-    """The modules of the package under ``src``, imported as ``alias``."""
-    pkg = Path(src).resolve() / "repro_torch"
-    spec = importlib.util.spec_from_file_location(
-        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = mod
-    spec.loader.exec_module(mod)
-    return {name: importlib.import_module(f"{alias}.{path}") for name, path in
-            (("mb", "kernels.mindist_batch"), ("um", "kernels.unpack_mindist"),
-             ("ref", "kernels.ref"), ("S", "core.summarization"),
-             ("pack", "storage.packing"))}
-
-
-def event_us(fn, flush=None) -> float:
-    times = []
-    for _ in range(EVENT_REPS):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) * 1e3)
-    return statistics.median(times)
-
-
-def host_us(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(HOST_CALLS):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / HOST_CALLS * 1e6
-
-
-def cases(t: dict, data: dict) -> dict:
+def cases(t: dict, data: dict, first: tuple) -> dict:
     """(kernel call, plain twin on the CPU, L2 flushed) per case name."""
     mb, um, ref = t["mb"].mindist_batch, t["um"].unpack_mindist, t["ref"]
     out = {}
@@ -111,7 +74,7 @@ def cases(t: dict, data: dict) -> dict:
                 um(q, p, lo, hi, scale, w=w, b=8),
             lambda cpu=cpu, scale=scale: ref.mindist_batch_ref(*cpu, scale),
             False)
-        if s == MAIN:
+        if s == first:
             out[f"unpack_mindist b=8 L2 cold {s}"] = (
                 out[f"unpack_mindist b=8 {s}"][0],
                 out[f"unpack_mindist b=8 {s}"][1], True)
@@ -126,18 +89,14 @@ def cases(t: dict, data: dict) -> dict:
     return out
 
 
-def with_plan(t: dict, rows: int, qt: int) -> None:
-    """Make the tree's wrappers launch (rows, qt) tiles: its own plan with
-    the tile replaced and the grid and shared memory to match."""
+def with_qt(t: dict, qt: int) -> None:
+    """Make the tree's wrappers launch ``qt`` queries a block."""
     mbm = t["mb"]
     own = mbm.launch_plan.__wrapped__
 
-    def plan(nq, n, w, pw=0):
-        p = own(nq, n, w, pw)
-        return p._replace(rows=rows, qt=qt,
-                          grid=(-(-n // rows), -(-nq // qt)),
-                          smem=mbm.TABLE_BYTES + -(-4 * w * qt // 16) * 16
-                          + 4 * p.stride * rows)
+    def plan(nq, n, w):
+        p = own(nq, n, w)
+        return p._replace(qt=qt, grid=(p.grid[0], -(-nq // qt)))
     mbm.launch_plan = plan
     t["um"].launch_plan = plan
 
@@ -146,19 +105,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", nargs="+", required=True,
                     help="directories that hold a repro_torch package")
-    ap.add_argument("--plans", nargs="*", default=[],
-                    help="rows,qt tiles to time on the first tree")
+    ap.add_argument("--shapes", nargs="*", default=[],
+                    help="Q,N,w shapes in place of the default ones")
+    ap.add_argument("--qt", nargs="*", type=int, default=[],
+                    help="query tiles to time on the first tree")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    trees = [load(s, f"tree{i}_repro_torch") for i, s in enumerate(args.src)]
+    shapes = ([tuple(int(v) for v in x.split(",")) for x in args.shapes]
+              or SHAPES)
+    first = shapes[0]
+    trees = [load(s, f"tree{i}_repro_torch", MODULES)
+             for i, s in enumerate(args.src)]
     S, pack = trees[0]["S"], trees[0]["pack"]
     rng = np.random.default_rng(args.seed)
     tables = {b: tuple(x.cuda() for x in S.region_bounds(b)) for b in (4, 8)}
     data = {}
-    for s in SHAPES:
+    for s in shapes:
         nq, n, w = s
         codes = rng.integers(0, 256, (n, w), dtype=np.uint8)
         codes4 = codes >> 4
@@ -174,14 +139,13 @@ def main() -> int:
     one = torch.empty(1, device="cuda")
     floor = []
     runs = [(src, t) for src, t in zip(args.src, trees)]
-    for spec in args.plans:
-        rows, qt = (int(v) for v in spec.split(","))
-        t = load(args.src[0], f"plan{len(runs)}_repro_torch")
-        with_plan(t, rows, qt)
-        runs.append((f"{args.src[0]} plan {spec}", t))
+    for qt in args.qt:
+        t = load(args.src[0], f"qt{len(runs)}_repro_torch", MODULES)
+        with_qt(t, qt)
+        runs.append((f"{args.src[0]} qt {qt}", t))
     out = []
     for _, t in runs:
-        cs = cases(t, data)
+        cs = cases(t, data, first)
         bits = {}
         for name, (fn, twin, _) in cs.items():
             try:
@@ -196,7 +160,9 @@ def main() -> int:
                     "host_us": {k: [] for k in ("mindist_batch",
                                                 "unpack_mindist")}})
     order = list(range(len(runs)))
-    q, c, pk = (data[MAIN][k] for k in ("q", "codes", "packed"))
+    q, c, pk = (data[first][k] for k in ("q", "codes", "packed"))
+    host_calls = [()] * HOST_CALLS
+    w = first[2]
     lo, hi = tables[8]
     for _ in range(args.reps):
         floor.append(event_us(lambda: one.fill_(0.0)))
@@ -207,10 +173,11 @@ def main() -> int:
                 o["kernel_us"][name].append(
                     event_us(fn, flush if cold else None))
             o["host_us"]["mindist_batch"].append(host_us(
-                lambda: t["mb"].mindist_batch(q, c, lo, hi, 16.0)))
+                lambda: t["mb"].mindist_batch(q, c, lo, hi, 16.0),
+                host_calls))
             o["host_us"]["unpack_mindist"].append(host_us(
-                lambda: t["um"].unpack_mindist(q, pk[8], lo, hi, 16.0, w=16,
-                                               b=8)))
+                lambda: t["um"].unpack_mindist(q, pk[8], lo, hi, 16.0, w=w,
+                                               b=8), host_calls))
     print(torch.cuda.get_device_name(0))
     print(json.dumps({"floor_us": statistics.median(floor), "rounds": floor}))
     for (src, _), o in zip(runs, out):
