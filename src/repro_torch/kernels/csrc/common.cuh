@@ -87,15 +87,6 @@ __device__ __forceinline__ float mindist_row(const int* c,
   return __fmul_rn(scale, acc);
 }
 
-// PAA of one segment of sl floats: summed in index order, then divided by the
-// segment length (the order of S.paa and the plain twins).  fused_build and
-// sax_summarize both call this, so their PAAs agree bit for bit.
-__device__ __forceinline__ float paa_segment(const float* seg, int sl) {
-  float acc = 0.f;
-  for (int e = 0; e < sl; ++e) acc = __fadd_rn(acc, seg[e]);
-  return __fdiv_rn(acc, static_cast<float>(sl));
-}
-
 // SAX code of one PAA value: the count of the card - 1 ascending breakpoints
 // that are <= v (searchsorted side="right"), by a branch-free binary search.
 __device__ __forceinline__ int sax_code(float v, const float* bps, int card) {
@@ -108,8 +99,9 @@ __device__ __forceinline__ int sax_code(float v, const float* bps, int card) {
 // Word kw of a row's z-order key from its w codes: global bit p = i * w + j
 // (MSB first) is bit bits - 1 - i of segment j; a last word the w * bits bits
 // do not fill is left-aligned.  Codes are read as c[j * stride].
-__device__ __forceinline__ unsigned zorder_word(const int* c, int stride, int kw,
-                                                int w, int bits) {
+template <typename Code>
+__device__ __forceinline__ unsigned zorder_word(const Code* c, int stride,
+                                                int kw, int w, int bits) {
   const int total = w * bits;
   unsigned word = 0;
   for (int b = 0; b < 32; ++b) {
@@ -136,55 +128,12 @@ __device__ __forceinline__ int unpack_symbol(Byte byte, int j, int b, int pw) {
   return (((hi << 8) | lo) >> (16 - (bit & 7) - b)) & ((1 << b) - 1);
 }
 
-// Summarize a tile of tr rows starting at row0 (the construction pass shared
-// by fused_build and sax_summarize).  The block stages the rows in shared
-// memory with coalesced loads, padding each segment by one float so threads
-// summing different segments hit different banks (s_x holds tr * w * (sl + 1)
-// floats), then one thread per (row, segment) writes the PAA and the SAX code
-// (and keeps the code in s_codes when it is given).  s_bps must be filled
-// before the call; the call ends with __syncthreads().  THREADS is the block
-// size: a compile-time stride lets nvcc unroll the staging loop and keep
-// several loads in flight per thread.
-template <int THREADS>
-__device__ __forceinline__ void summarize_tile(
-    const float* __restrict__ x, const float* s_bps, float* s_x, int* s_codes,
-    long long row0, int tr, int L, int w, int card, float* __restrict__ paa,
-    uint8_t* __restrict__ codes) {
-  const int sl = L / w;
-  const float* src = x + row0 * L;
-  for (int i = threadIdx.x; i < tr * L; i += THREADS) {
-    const int r = i / L;
-    const int l = i - r * L;
-    const int s = l / sl;
-    s_x[(r * w + s) * (sl + 1) + (l - s * sl)] = src[i];
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < tr * w; p += THREADS) {
-    const float v = paa_segment(s_x + p * (sl + 1), sl);
-    const int code = sax_code(v, s_bps, card);
-    paa[row0 * w + p] = v;
-    codes[row0 * w + p] = static_cast<uint8_t>(code);
-    if (s_codes != nullptr) s_codes[p] = code;
-  }
-  __syncthreads();
-}
-
 // The error of a refused runtime call, cleared from CUDA's last error: every
 // entry point ends in cudaGetLastError(), so an error left set would make the
 // next call of any kernel in the library fail.
 inline cudaError_t refused(cudaError_t err) {
   if (err != cudaSuccess) cudaGetLastError();
   return err;
-}
-
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel;
-// a size above what a block can use is refused (and cleared).
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return refused(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
 }
 
 }  // namespace coconut

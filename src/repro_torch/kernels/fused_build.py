@@ -3,7 +3,9 @@
 Raw ``[N, L]`` f32 -> (PAA ``[N, w]`` f32, SAX codes ``[N, w]`` uint8,
 z-order keys ``[N, n_words]`` int64) in one pass.  Replaces the TPU kernel
 ``fused_build_pallas`` of the reference package.  A CPU tensor goes to the
-plain twin :func:`repro_torch.kernels.ref.fused_build_ref`.
+plain twin :func:`repro_torch.kernels.ref.fused_build_ref`.  Its launch
+plan is ``sax_summarize``'s (:func:`repro_torch.kernels.sax_summarize.
+launch_plan`): the two kernels run one tile.
 """
 from __future__ import annotations
 
@@ -11,12 +13,11 @@ import torch
 
 from ..core.keys import n_key_words
 from . import loader, ref
+from .sax_summarize import launch_plan
 
 __all__ = ["fused_build"]
 
 NAME = "fused_build"
-_THREADS = 256
-_SMEM_FLOATS = 10240        # row tile budget: 40 KiB of shared memory
 
 
 def fused_build(x: torch.Tensor, bps: torch.Tensor, *, segments: int,
@@ -38,16 +39,13 @@ def fused_build(x: torch.Tensor, bps: torch.Tensor, *, segments: int,
     keys = torch.empty((n, nw), dtype=torch.int64, device=dev)
     if n == 0:
         return paa, codes, keys
-    # rows per block: enough (row, segment) pairs for the block's threads,
-    # within the shared-memory budget (a row takes L + 2 w floats)
-    rows = max(1, min(max(1, _THREADS // segments),
-                      _SMEM_FLOATS // (L + 2 * segments)))
+    plan = launch_plan(n, segments)
     lib = loader.library()
     with torch.cuda.device(dev):
         rc = lib.coconut_fused_build(x.data_ptr(), bps.data_ptr(),
                                      paa.data_ptr(), codes.data_ptr(),
                                      keys.data_ptr(), n, L, segments, bits,
-                                     nw, rows, loader.stream_ptr(dev))
+                                     nw, plan.grid, loader.stream_ptr(dev))
     loader.LAUNCHES[NAME] += 1
     loader.check(NAME, rc)
     return paa, codes, keys

@@ -11,9 +11,11 @@ k in {1, 10}; the construction and packed-bound kernels also at b in
 {3, 5}, where packed symbols straddle bytes; the cross form of
 ``batch_euclid`` at every tile edge of its launch plan, L up to 4096; the
 bound tile of ``mindist_batch`` and ``unpack_mindist`` at every tile edge
-of its plan, w in {8, 16, 64}, every b, at every byte offset.  After a
-shape a kernel refuses, every kernel's next call still runs.
-Cross-kernel identities:
+of its plan, w in {8, 16, 64}, every b, at every byte offset; the
+summarize tile of ``sax_summarize`` and ``fused_build`` at every tile
+edge and the persistent grid's wrap, its compile-time and generic shapes
+(w dividing 32, a multiple of 32, neither; L up to 60,000), at every
+4-byte offset.  Cross-kernel identities:
 ``sax_summarize`` + ``zorder`` == ``fused_build`` and ``unpack_mindist``
 == ``mindist_batch`` on the decoded codes, bit for bit.
 ``chip_smoke.py``'s kernel phase runs the same checks.
@@ -28,6 +30,9 @@ from repro_torch.core import summarization as S
 from repro_torch.kernels import loader, ops, ref
 from repro_torch.kernels.batch_euclid import WARP_R
 from repro_torch.kernels.mindist_batch import ROWS as MD_ROWS
+from repro_torch.kernels.sax_summarize import BLOCKS_PER_SM as SUM_BLOCKS_PER_SM
+from repro_torch.kernels.sax_summarize import SMS as SUM_SMS
+from repro_torch.kernels.sax_summarize import launch_plan as sum_plan
 from repro_torch.kernels.scan_verify import launch_plan
 from repro_torch.storage.packing import pack_codes
 
@@ -536,49 +541,94 @@ def test_wrappers_count_launches(cuda):
         assert loader.LAUNCHES[name] == before.get(name, 0) + 1
 
 
-def _every_kernel_matches_twin(dev):
-    """One good call of every kernel in the library, each equal to its
-    twin: an error that an earlier call left set would fail the first."""
-    cfg = S.SummaryConfig(64, 8, 4)
-    t = _inputs(11, 300, 8, cfg, dev)
-    lower, upper = S.region_bounds(4, device=dev)
-    bps = S.breakpoints(4, device=dev)
-    scale = cfg.series_len / cfg.segments
-    _same(ops.mindist_batch(t["q_paas"], t["codes"], cfg),
-          ref.mindist_batch_ref(t["q_paas"], t["codes"], lower, upper, scale))
-    packed = torch.from_numpy(pack_codes(t["codes"].cpu().numpy(), 4)).to(dev)
-    _same(ops.mindist_batch_packed(t["q_paas"], packed, cfg),
-          ref.mindist_batch_packed_ref(t["q_paas"], packed, lower, upper,
-                                       scale, w=8, b=4))
-    ed = ops.batch_euclid_multi(t["q"], t["x"])
-    _same(ed, ref.batch_euclid_ref(t["q"], t["x"]))
-    idx = torch.arange(8 * 5, device=dev).reshape(8, 5)
-    _same(ops.batch_euclid_multi(t["q"], t["x"], idx=idx),
-          ref.batch_euclid_gather_ref(t["q"], t["x"], idx))
-    bound = ed.median(dim=1).values
-    no_dead = torch.zeros(300, dtype=torch.int32, device=dev)
-    for g, w_ in zip(ops.scan_verify(t["q"], t["q_paas"], t["codes"], t["x"],
-                                     bound, cfg, k=4),
-                     ref.scan_verify_ref(t["q"], t["q_paas"], t["codes"],
-                                         t["x"], lower, upper, bound, no_dead,
-                                         scale=scale, k=4)):
-        _same(g, w_)
-    for g, w_ in zip(ops.summarize_and_key(t["x"], cfg),
-                     ref.fused_build_ref(t["x"], bps, segments=8, bits=4)):
-        _same(g, w_)
-    for g, w_ in zip(ops.sax_summarize(t["x"], cfg),
-                     ref.sax_summarize_ref(t["x"], bps, segments=8)):
-        _same(g, w_)
-    _same(ops.zorder(t["codes"], cfg), ref.zorder_ref(t["codes"], w=8, b=4))
+# the summarize tile: the shipped shapes (a compile-time tile), and generic
+# ones (w dividing 32, a multiple of 32, neither; L not a multiple of 4)
+SUM_SHAPES = ((256, 16), (64, 8), (60, 12), (300, 12), (256, 64), (256, 32),
+              (256, 4), (50, 5))
+SUM_GRID = SUM_SMS * SUM_BLOCKS_PER_SM
 
 
-@pytest.mark.parametrize("entry", ["sax_summarize", "summarize_and_key"])
-def test_refused_shared_memory_leaves_no_stale_error(cuda, entry):
-    """At L = 60,000 and w = 16 one row needs more shared memory than a
-    block can use (232,448 B): the call raises with CUDA's error, and
-    every kernel's next call still runs and equals its twin."""
-    cfg = S.SummaryConfig(60_000, 16, 8)
-    x = torch.zeros((2, 60_000), dtype=torch.float32, device=cuda)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        getattr(ops, entry)(x, cfg)
-    _every_kernel_matches_twin(cuda)
+def _sum_ns(w):
+    """N at every edge of one and two tiles and of the persistent grid's
+    first pass and wrap."""
+    rows = sum_plan(1, w).rows
+    g = rows * SUM_GRID
+    return sorted({1, rows - 1, rows, rows + 1, 2 * rows + 1, g - 1, g,
+                   g + 1, g + rows + 1, 2 * g + 3} - {0})
+
+
+def _summaries_same_as_twins(x, cfg):
+    """Both kernels equal their twins on the same CUDA tensors, and
+    sax_summarize + zorder == fused_build, bit for bit."""
+    b, w = cfg.bits, cfg.segments
+    bps = S.breakpoints(b, device=x.device)
+    paa, codes = ops.sax_summarize(x, cfg)
+    f_paa, f_codes, f_keys = ops.summarize_and_key(x, cfg)
+    torch.cuda.synchronize()
+    r_paa, r_codes, r_keys = ref.fused_build_ref(x, bps, segments=w, bits=b)
+    _same(paa.view(torch.int32), r_paa.view(torch.int32))
+    _same(codes, r_codes)
+    _same(f_paa.view(torch.int32), r_paa.view(torch.int32))
+    _same(f_codes, r_codes)
+    _same(f_keys, r_keys)
+    if w <= 64:
+        _same(ops.zorder(codes, cfg), f_keys)
+    return f_paa, f_codes, f_keys
+
+
+@pytest.mark.parametrize("L,w", SUM_SHAPES)
+def test_summarize_tile_edges(cuda, L, w):
+    ns = _sum_ns(w)
+    for b in (1, 3, 8):
+        cfg = S.SummaryConfig(L, w, b)
+        x = torch.from_numpy(_walks(np.random.default_rng(L + w + b),
+                                    ns[-1], L)).to(cuda)
+        for n in ns:
+            _summaries_same_as_twins(x[:n], cfg)
+        # and against the twin on the CPU, at the widest edge
+        got = ops.summarize_and_key(x, cfg)
+        for g, c in zip(got, ops.summarize_and_key(x.cpu(), cfg)):
+            _same(g, c)
+
+
+@pytest.mark.parametrize("L,w", SUM_SHAPES)
+def test_summarize_tile_unaligned_and_offset_views(cuda, L, w):
+    """x at every 4-byte offset of a 16-byte word (the shipped shapes then
+    take the generic tile), and row slices: the same bits as aligned."""
+    cfg = S.SummaryConfig(L, w, 8)
+    x = torch.from_numpy(_walks(np.random.default_rng(w), 301, L)).to(cuda)
+    want = _summaries_same_as_twins(x, cfg)
+    for off in range(4):
+        buf = torch.zeros(x.numel() + 4, dtype=torch.float32, device=cuda)
+        view = buf[off:off + x.numel()].view(x.shape)
+        view.copy_(x)
+        for g, w_ in zip(_summaries_same_as_twins(view, cfg), want):
+            _same(g, w_)
+    for g, w_ in zip(_summaries_same_as_twins(x[1:], cfg), want):
+        _same(g, w_[1:])
+    for g, w_ in zip(_summaries_same_as_twins(x[3:-2], cfg), want):
+        _same(g, w_[3:-2])
+
+
+def test_summarize_tile_repeatable(cuda):
+    """20 launches at one external-sort chunk (and a ragged tail) give the
+    same bits."""
+    cfg = S.SummaryConfig(256, 16, 8)
+    x = torch.from_numpy(_walks(np.random.default_rng(20), 65_536 + 17,
+                                256)).to(cuda)
+    first = _summaries_same_as_twins(x, cfg)
+    for _ in range(20):
+        for g, w_ in zip(ops.summarize_and_key(x, cfg), first):
+            _same(g, w_)
+        for g, w_ in zip(ops.sax_summarize(x, cfg), first):
+            _same(g, w_)
+
+
+@pytest.mark.parametrize("w", (16, 12))
+def test_summarize_tile_long_rows(cuda, w):
+    """L = 60,000 (once refused for its shared memory): the generic tile
+    reads each segment from device memory, so any length runs."""
+    cfg = S.SummaryConfig(60_000, w, 8)
+    x = torch.from_numpy(_walks(np.random.default_rng(w), 3,
+                                60_000)).to(cuda)
+    _summaries_same_as_twins(x, cfg)
