@@ -202,11 +202,13 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
                      launched(ops.batch_euclid_multi(qt, xt, idx=idx)),
                      torch.gather(ed, 1, idx))
     # the storage path's kernels, also at b = 3, 5 (packed symbols that
-    # straddle bytes), each against its twin and against the kernels it
+    # straddle bytes) and at a shape of the summarize tile's generic path
+    # (L = 300, w = 12), each against its twin and against the kernels it
     # must equal: sax_summarize + zorder == fused_build, unpack_mindist ==
     # mindist_batch on the decoded codes
     for b in (1, 3, 4, 5, 8):
-        for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)):
+        for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b),
+                    S.SummaryConfig(300, 12, b)):
             lower, upper = S.region_bounds(b, device=dev)
             bps = S.breakpoints(b, device=dev)
             scale = cfg.series_len / cfg.segments
@@ -300,12 +302,12 @@ def device_profile(torch, fn, reps: int = 1, top: int = 8):
     return sum(r[0] for r in rows), rows
 
 
-def kernel_total(rows, key: str, what: str) -> None:
+def kernel_total(rows, key: str, what: str, over: str = "one batch") -> None:
     """Print the device total and per-launch mean of the profiled kernels
-    whose name holds ``key`` (rows of :func:`device_profile`)."""
+    whose name holds ``key`` (rows of :func:`device_profile` over ``over``)."""
     sel = [r for r in rows if key in r[2]]
     ms, n = sum(r[0] for r in sel), sum(r[1] for r in sel)
-    print(f"{what} (torch.profiler, one batch): "
+    print(f"{what} (torch.profiler, {over}): "
           + (f"{ms:.3f} ms in {n} launches ({1e3 * ms / n:.2f} us each)"
              if n else "not measured (the profiler recorded none)"))
 
@@ -580,6 +582,9 @@ def main() -> int:
     print(f"build: {tree.n} rows, {tree.n_leaves} leaves in {build_s:.3f} s; "
           f"launches {build_launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print("build device profile (torch.profiler, a second tree build):")
+    _, b_prof = device_profile(torch, lambda: T.build(x, cfg, leaf_size=leaf))
+    kernel_total(b_prof, "FusedBuild", "fused_build kernels", "one build")
 
     # -- 4: eager batched exact search -----------------------------------------
     # the first batch records the rows of every cross-form launch (the
@@ -824,6 +829,13 @@ def main() -> int:
           f"Q={nq})")
     chunk = tree.raw[:SEG_CHUNK].contiguous()      # one external-sort chunk
     nc = chunk.shape[0]
+    chunks = range(0, tree.n, SEG_CHUNK)
+    print(f"sax_summarize device profile (torch.profiler, the segment "
+          f"build's {len(chunks)} chunks, rows resident on the card):")
+    _, s_prof = device_profile(torch, lambda: [
+        ops.sax_summarize(tree.raw[s:s + SEG_CHUNK], cfg) for s in chunks])
+    kernel_total(s_prof, "SaxSummarize", "sax_summarize kernels",
+                 "one segment build's chunks")
     c_codes = ops.sax_summarize(chunk, cfg)[1]
     pk_host = torch.from_numpy(seg_out["packed_host"]).to(dev)
     pk_hot = seg_out["packed_hot"]

@@ -108,7 +108,10 @@ def paa(x: torch.Tensor, segments: int) -> torch.Tensor:
 
     Each segment is summed in index order, then divided by its length —
     the order the ``fused_build`` kernel uses, so the two agree bit for
-    bit on any device."""
+    bit on any device.  The length divides as a tensor on ``x``'s device:
+    divided by a Python number, a CUDA tensor is multiplied by its
+    reciprocal, which can differ in the last bit where the length is not a
+    power of two."""
     *lead, L = x.shape
     if L % segments != 0:
         raise ValueError(f"series length {L} not divisible by w={segments}")
@@ -117,7 +120,7 @@ def paa(x: torch.Tensor, segments: int) -> torch.Tensor:
     acc = r[..., 0]
     for e in range(1, seg):
         acc = acc + r[..., e]
-    return acc / seg
+    return acc / torch.full((), seg, dtype=acc.dtype, device=acc.device)
 
 
 def sax_encode(paa_vals: torch.Tensor, bits: int) -> torch.Tensor:

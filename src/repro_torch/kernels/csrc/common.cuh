@@ -22,6 +22,7 @@ namespace coconut {
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxW = 64;   // widest SAX word the kernels take
+constexpr int kMaxBits = 8; // widest SAX symbol
 
 // Squared ED of one (query, row) pair, computed by a whole warp.  Lane l sums
 // (x[i] - q[i])^2 for i = l, l + 32, ... in order; the 32 partials are then
@@ -87,12 +88,14 @@ __device__ __forceinline__ float mindist_row(const int* c,
   return __fmul_rn(scale, acc);
 }
 
-// SAX code of one PAA value: the count of the card - 1 ascending breakpoints
-// that are <= v (searchsorted side="right"), by a branch-free binary search.
-__device__ __forceinline__ int sax_code(float v, const float* bps, int card) {
+// SAX code of one PAA value: the count of the 2^bits - 1 ascending
+// breakpoints that are <= v (searchsorted side="right"), by a branch-free
+// binary search, unrolled over the at most kMaxBits steps.
+__device__ __forceinline__ int sax_code(float v, const float* bps, int bits) {
   int pos = 0;
-  for (int step = card >> 1; step > 0; step >>= 1)
-    if (bps[pos + step - 1] <= v) pos += step;
+#pragma unroll
+  for (int k = kMaxBits - 1; k >= 0; --k)
+    if (k < bits && bps[pos + (1 << k) - 1] <= v) pos += 1 << k;
   return pos;
 }
 

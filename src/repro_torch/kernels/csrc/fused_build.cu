@@ -11,9 +11,9 @@
 //
 // Design: the summarize tile (summarize_tile.cuh), which sax_summarize runs
 // too, and its key stage.  A persistent grid of 256-thread blocks, one (row,
-// segment) pair a thread; at the shipped shapes each block copies its next
-// tile into shared memory with 16-byte cp.async copies while it sums the
-// current one.  A thread sums its segment in index order and divides by the
+// segment) pair a thread; at the shipped shapes a thread loads its segment
+// into registers as float4s and issues its next tile's loads before it sums
+// the current one.  A thread sums its segment in index order and divides by the
 // segment length (the order of the PAA in core/summarization.py), and finds
 // its code by a branch-free binary search over the 2^b - 1 breakpoints (the
 // count of breakpoints <= PAA, i.e. searchsorted side="right").  The key

@@ -13,9 +13,9 @@
 // Design: the summarize tile (summarize_tile.cuh) without its key stage, the
 // tile fused_build runs, so on the same rows the two kernels give the same
 // PAA and code bits by construction.  A persistent grid of 256-thread blocks,
-// one (row, segment) pair a thread; at the shipped shapes each block copies
-// its next tile into shared memory with 16-byte cp.async copies while it sums
-// the current one.  The TPU kernel's compare-and-count over the whole
+// one (row, segment) pair a thread; at the shipped shapes a thread loads its
+// segment into registers as float4s and issues its next tile's loads before
+// it sums the current one.  The TPU kernel's compare-and-count over the whole
 // breakpoint table (a dense vector reduction suited to the TPU) becomes a
 // binary search: the same count, b compares.  The reference takes jnp.mean
 // for the PAA, whose order XLA may change, so a PAA may differ from the
@@ -32,9 +32,4 @@ extern "C" int coconut_sax_summarize(const float* x, const float* bps,
   using namespace coconut;
   return summarize<SaxSummarize>(
       SumArgs{x, bps, paa, codes, nullptr, n, L, w, bits, 0}, grid, stream);
-}
-
-// Selects the tile of the compile-time shapes: 0 staged, 1 direct.
-extern "C" void coconut_summarize_variant(int v) {
-  coconut::summarize_variant() = v;
 }

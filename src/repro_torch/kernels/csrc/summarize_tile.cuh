@@ -11,22 +11,23 @@
 //
 // The tile at the shapes the repo ships, (L, w) = (256, 16) and (64, 8),
 // with x 16-byte aligned: the segment length SL and w are compile-time
-// constants, so no index needs a division.  A block copies its next tile's
-// rows into shared memory with 16-byte cp.async copies while it sums the
-// current one (two buffers); each segment sits at a stride of SL + 4
-// floats, read as SL / 4 float4 loads, so the 8 threads of a quarter warp
-// read 8 different 4-bank groups (5p mod 8 at SL = 16, 3p mod 8 at SL = 8).
-// Shared memory is static: 2 x 256 x 20 floats plus the breakpoints
-// (41,980 B at SL = 16), within the 48 KB a block has by default.
+// constants, so no index needs a division.  A thread loads its segment
+// straight into registers as SL / 4 float4s (a warp's loads cover 32 whole
+// segments, 2 KiB at SL = 16, each 32-byte sector read whole by two loads
+// that meet in L1), and issues the loads of its next tile before it sums
+// the current one, so a block's loads overlap its own compute.  Shared
+// memory holds the breakpoints only.  (A variant that copied each tile into
+// shared memory with 16-byte cp.async copies, two buffers, at a
+// bank-conflict-free stride, was 15% slower at the tree build: PERF.md.)
 //
 // Every other L % w == 0, or x not 16-byte aligned: the generic tile, with
 // the same pairs and the same order; a thread reads its segment from device
 // memory one float at a time.
 //
 // Arithmetic, the same in both: the segment summed in index order from its
-// first float, then __fdiv_rn by SL (the order of S.paa and the plain
-// twins); the code by sax_code's binary search over the breakpoints in
-// shared memory.  So both tiles, and both kernels, give the same bits.
+// first float, then __fdiv_rn by its length (the order of S.paa and the
+// plain twins); the code by sax_code's binary search over the breakpoints.
+// So both tiles, and both kernels, give the same bits.
 //
 // Keys: where w divides 32 (a warp holds 32 / w whole rows) or is a
 // multiple of 32 (a row spans w / 32 warps), bit plane i of the codes (bit
@@ -64,46 +65,15 @@ struct FusedBuild {
   static constexpr bool kKeys = true;
 };
 
-// The staged tile of a compile-time shape.
-template <int SL, int W>
-struct Staged {
-  static_assert(SL % 4 == 0 && kSumThreads % W == 0 && 32 % W == 0,
-                "a staged segment is whole float4s, a tile whole rows of "
-                "whole warps");
-  static constexpr int kL = SL * W;
-  static constexpr int kRows = kSumThreads / W;   // rows a tile
-  static constexpr int kStride = SL + 4;          // floats a staged segment
-  static constexpr int kVecs = SL / 4;            // float4s a segment
-  static constexpr int kBuf = kSumThreads * kStride;
-};
-static_assert(2 * Staged<16, 16>::kBuf * 4 + kMaxBps * 4 <= 48 * 1024,
-              "the staged tile must fit the default shared memory");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one group of this thread's copies is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Is the key stage ballot_keys (else zorder_word) at width w?
-__host__ __device__ __forceinline__ bool ballot_width(int w) {
+__host__ __device__ constexpr bool ballot_width(int w) {
   return 32 % w == 0 || w % 32 == 0;
 }
 
 // The key words of the rows whose pairs a warp holds, from each lane's
 // code.  p is the lane's pair in the tile (p % 32 is its lane); pairs at or
 // past live_pairs are not in the tile and add no bit; keys points at the
-// tile's first row.  Every lane of the warp calls it.
+// tile's first row.  Every lane of the warp calls it.  W = 0: w at run time.
 template <int W>
 __device__ __forceinline__ void ballot_keys(int code, int p, int live_pairs,
                                             int w_rt, int bits, int nw,
@@ -111,6 +81,8 @@ __device__ __forceinline__ void ballot_keys(int code, int p, int live_pairs,
   const int w = W > 0 ? W : w_rt;
   const int lane = threadIdx.x & (kWarp - 1);
   const bool live = p < live_pairs;
+  // the code MSB first from bit 31: plane i is bit 31 - i
+  const unsigned c = live ? static_cast<unsigned>(code) << (32 - bits) : 0u;
   if (w <= kWarp) {
     // the warp holds rows r0 .. r0 + 32 / w - 1; lane l builds word kw of
     // row r0 + g (l = g * nw + kw)
@@ -118,14 +90,17 @@ __device__ __forceinline__ void ballot_keys(int code, int p, int live_pairs,
     const int g = lane / nw;
     const int kw = lane - g * nw;
     const bool mine = g < kWarp / w;
+    const int gw = mine ? g * w : 0;
     unsigned word = 0;
-    for (int i = 0; i < bits; ++i) {
-      const unsigned bal =
-          __ballot_sync(kFull, live && ((code >> (bits - 1 - i)) & 1));
-      const int bit0 = i * w;          // the plane's first global key bit
-      if (mine && (bit0 >> 5) == kw) {
-        const unsigned f = (bal >> (g * w)) & (kFull >> (kWarp - w));
-        word |= (__brev(f) >> (kWarp - w)) << (kWarp - w - (bit0 & 31));
+#pragma unroll
+    for (int i = 0; i < kMaxBits; ++i) {
+      if (i < bits) {
+        const unsigned bal = __ballot_sync(kFull, (c >> (31 - i)) & 1u);
+        const int bit0 = i * w;        // the plane's first global key bit
+        if ((bit0 >> 5) == kw) {
+          const unsigned f = (bal >> gw) & (kFull >> (kWarp - w));
+          word |= (__brev(f) >> (kWarp - w)) << (kWarp - w - (bit0 & 31));
+        }
       }
     }
     if (mine && (r0 + g) * w < live_pairs)
@@ -136,146 +111,65 @@ __device__ __forceinline__ void ballot_keys(int code, int p, int live_pairs,
     const int r = p / w;
     const int h = (p - r * w) / kWarp;
     unsigned word = 0;
-    for (int i = 0; i < bits; ++i) {
-      const unsigned bal =
-          __ballot_sync(kFull, live && ((code >> (bits - 1 - i)) & 1));
-      if (lane == i) word = __brev(bal);
+#pragma unroll
+    for (int i = 0; i < kMaxBits; ++i) {
+      if (i < bits) {
+        const unsigned bal = __ballot_sync(kFull, (c >> (31 - i)) & 1u);
+        if (lane == i) word = __brev(bal);
+      }
     }
     if (live && lane < bits)
       keys[static_cast<long long>(r) * nw + lane * (w / kWarp) + h] = word;
   }
 }
 
-// A pair's PAA from its segment's floats: summed in index order from the
-// first, then divided by SL.
-template <int SL>
-__device__ __forceinline__ float segment_paa(const float (&v)[SL]) {
-  float acc = v[0];
-#pragma unroll
-  for (int e = 1; e < SL; ++e) acc = __fadd_rn(acc, v[e]);
-  return __fdiv_rn(acc, static_cast<float>(SL));
-}
-
-// The rest of a staged-shape pair once its SL floats are in v: the PAA,
-// the code, their stores and the key stage.
+// The tile at a compile-time shape: SL floats a segment, W segments a row.
 template <typename Tag, int SL, int W>
-__device__ __forceinline__ void finish_pair(const SumArgs& a,
-                                            const float* s_bps,
-                                            const float (&v)[SL],
-                                            long long row0, int live_pairs) {
-  const int tid = threadIdx.x;
-  const float m = segment_paa<SL>(v);
-  const int code = sax_code(m, s_bps, 1 << a.bits);
-  if (tid < live_pairs) {
-    a.paa[row0 * W + tid] = m;
-    a.codes[row0 * W + tid] = static_cast<uint8_t>(code);
-  }
-  if constexpr (Tag::kKeys)
-    ballot_keys<W>(code, tid, live_pairs, W, a.bits, a.nw,
-                   a.keys + row0 * a.nw);
-}
-
-template <int SL>
-__device__ __forceinline__ void unpack4(float (&v)[SL], const float4* f) {
-#pragma unroll
-  for (int k = 0; k < SL / 4; ++k) {
-    v[4 * k] = f[k].x;
-    v[4 * k + 1] = f[k].y;
-    v[4 * k + 2] = f[k].z;
-    v[4 * k + 3] = f[k].w;
-  }
-}
-
-template <typename Tag, int SL, int W>
-__device__ __forceinline__ void staged_tiles(const SumArgs& a,
+__device__ __forceinline__ void shaped_tiles(const SumArgs& a,
                                              const float* s_bps) {
-  using T = Staged<SL, W>;
-  __shared__ __align__(16) float s_x[2][T::kBuf];
+  static_assert(SL % 4 == 0 && kSumThreads % W == 0 && ballot_width(W),
+                "a segment is whole float4s, a tile whole rows of whole "
+                "warps, and the keys ballots");
+  constexpr int kRows = kSumThreads / W;   // rows a tile
+  constexpr int kVecs = SL / 4;            // float4s a segment
   const int tid = threadIdx.x;
-  const long long tiles = (a.n + T::kRows - 1) / T::kRows;
-
-  // the copies of tile t into buffer buf: chunk c (16 bytes) of the tile's
-  // rows is float4 c % kVecs of the tile's segment c / kVecs
-  const auto issue = [&](long long t, int buf) {
-    const long long row0 = t * T::kRows;
-    const int chunks =
-        static_cast<int>(min(static_cast<long long>(T::kRows), a.n - row0)) *
-        (T::kL / 4);
-    const float* src = a.x + row0 * T::kL;
-#pragma unroll
-    for (int u = 0; u < T::kVecs; ++u) {
-      const int c = tid + u * kSumThreads;
-      if (c < chunks)
-        cp_async16(&s_x[buf][(c / T::kVecs) * T::kStride + 4 * (c % T::kVecs)],
-                   src + 4 * c);
-    }
-    cp_async_commit();
-  };
-
-  long long t = blockIdx.x;
-  if (t < tiles) issue(t, 0);
-  for (int i = 0; t < tiles; t += gridDim.x, ++i) {
-    const int buf = i & 1;
-    // the next tile's copies go out before this one is summed; the buffer
-    // they fill was last read before the previous iteration's barrier
-    const long long next = t + gridDim.x;
-    if (next < tiles)
-      issue(next, buf ^ 1);
-    else
-      cp_async_commit();    // an empty group: wait_group counts the same
-    cp_async_wait_one();
-    __syncthreads();
-    const long long row0 = t * T::kRows;
-    float v[SL];
-    unpack4<SL>(v, reinterpret_cast<const float4*>(&s_x[buf][tid * T::kStride]));
-    finish_pair<Tag, SL, W>(
-        a, s_bps, v, row0,
-        static_cast<int>(min(static_cast<long long>(T::kRows), a.n - row0)) *
-            W);
-    __syncthreads();
-  }
-}
-
-// The same tile, each thread loading its own segment from device memory as
-// SL / 4 float4s straight into registers, the next tile's loads issued
-// before the current tile is summed.
-template <typename Tag, int SL, int W>
-__device__ __forceinline__ void direct_tiles(const SumArgs& a,
-                                             const float* s_bps) {
-  using T = Staged<SL, W>;
-  const int tid = threadIdx.x;
-  const long long tiles = (a.n + T::kRows - 1) / T::kRows;
-  const auto load = [&](long long t, float4 (&f)[T::kVecs]) {
-    const long long pair = t * kSumThreads + tid;
+  const long long tiles = (a.n + kRows - 1) / kRows;
+  const auto load = [&](long long t, float4 (&f)[kVecs]) {
+    const long long pair = t * kSumThreads + tid;   // = row * W + segment
     if (pair < a.n * W) {
       const float4* src = reinterpret_cast<const float4*>(a.x + pair * SL);
 #pragma unroll
-      for (int k = 0; k < T::kVecs; ++k) f[k] = __ldg(src + k);
+      for (int k = 0; k < kVecs; ++k) f[k] = __ldg(src + k);
     }
   };
-  float4 cur[T::kVecs], nxt[T::kVecs];
+  float4 cur[kVecs], next[kVecs];
   long long t = blockIdx.x;
   if (t < tiles) load(t, cur);
   for (; t < tiles; t += gridDim.x) {
-    const long long next = t + gridDim.x;
-    if (next < tiles) load(next, nxt);
-    const long long row0 = t * T::kRows;
-    float v[SL];
-    unpack4<SL>(v, cur);
-    finish_pair<Tag, SL, W>(
-        a, s_bps, v, row0,
-        static_cast<int>(min(static_cast<long long>(T::kRows), a.n - row0)) *
-            W);
+    if (t + gridDim.x < tiles) load(t + gridDim.x, next);
+    const long long row0 = t * kRows;
+    const int live_pairs =
+        static_cast<int>(min(static_cast<long long>(kRows), a.n - row0)) * W;
+    float acc = cur[0].x;
 #pragma unroll
-    for (int k = 0; k < T::kVecs; ++k) cur[k] = nxt[k];
+    for (int k = 0; k < kVecs; ++k) {
+      if (k > 0) acc = __fadd_rn(acc, cur[k].x);
+      acc = __fadd_rn(acc, cur[k].y);
+      acc = __fadd_rn(acc, cur[k].z);
+      acc = __fadd_rn(acc, cur[k].w);
+    }
+    const float m = __fdiv_rn(acc, static_cast<float>(SL));
+    const int code = sax_code(m, s_bps, a.bits);
+    if (tid < live_pairs) {
+      a.paa[row0 * W + tid] = m;
+      a.codes[row0 * W + tid] = static_cast<uint8_t>(code);
+    }
+    if constexpr (Tag::kKeys)
+      ballot_keys<W>(code, tid, live_pairs, W, a.bits, a.nw,
+                     a.keys + row0 * a.nw);
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) cur[k] = next[k];
   }
-}
-
-// Which tile the compile-time shapes run: 0 staged, 1 direct (a switch for
-// comparing the two on the card).
-inline int& summarize_variant() {
-  static int v = 0;
-  return v;
 }
 
 template <typename Tag>
@@ -283,7 +177,6 @@ __device__ __forceinline__ void generic_tiles(const SumArgs& a,
                                               const float* s_bps) {
   const int w = a.w;
   const int sl = a.L / w;
-  const int card = 1 << a.bits;
   const int rows = w <= kSumThreads ? kSumThreads / w : 1;
   const long long tiles = (a.n + rows - 1) / rows;
   const bool ballot = ballot_width(w);
@@ -302,7 +195,7 @@ __device__ __forceinline__ void generic_tiles(const SumArgs& a,
         float acc = seg[0];
         for (int e = 1; e < sl; ++e) acc = __fadd_rn(acc, seg[e]);
         const float m = __fdiv_rn(acc, static_cast<float>(sl));
-        code = sax_code(m, s_bps, card);
+        code = sax_code(m, s_bps, a.bits);
         a.paa[row0 * w + p] = m;
         a.codes[row0 * w + p] = static_cast<uint8_t>(code);
       }
@@ -327,17 +220,15 @@ __device__ __forceinline__ void generic_tiles(const SumArgs& a,
 }
 
 // SL = W = 0: the generic tile.
-template <typename Tag, int SL, int W, bool kDirect = false>
+template <typename Tag, int SL, int W>
 __global__ void __launch_bounds__(kSumThreads, kSumBlocksPerSm)
 summarize_kernel(SumArgs a) {
   __shared__ float s_bps[kMaxBps];
   for (int i = threadIdx.x; i < (1 << a.bits) - 1; i += kSumThreads)
     s_bps[i] = a.bps[i];
   __syncthreads();
-  if constexpr (SL > 0 && kDirect)
-    direct_tiles<Tag, SL, W>(a, s_bps);
-  else if constexpr (SL > 0)
-    staged_tiles<Tag, SL, W>(a, s_bps);
+  if constexpr (SL > 0)
+    shaped_tiles<Tag, SL, W>(a, s_bps);
   else
     generic_tiles<Tag>(a, s_bps);
 }
@@ -346,18 +237,14 @@ summarize_kernel(SumArgs a) {
 // grid >= 1 and, for keys, nw = ceil(w * bits / 32).
 template <typename Tag>
 inline cudaError_t summarize(const SumArgs& a, int grid, void* stream) {
-  if (a.n < 1 || a.w < 1 || a.L % a.w != 0 || a.bits < 1 || a.bits > 8 ||
-      grid < 1 || (Tag::kKeys && a.nw != (a.w * a.bits + 31) / 32))
+  if (a.n < 1 || a.w < 1 || a.L % a.w != 0 || a.bits < 1 ||
+      a.bits > kMaxBits || grid < 1 ||
+      (Tag::kKeys && a.nw != (a.w * a.bits + 31) / 32))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  const bool direct = summarize_variant() == 1;
-  if (vec && a.L == 256 && a.w == 16 && direct)
-    summarize_kernel<Tag, 16, 16, true><<<grid, kSumThreads, 0, s>>>(a);
-  else if (vec && a.L == 256 && a.w == 16)
+  if (vec && a.L == 256 && a.w == 16)
     summarize_kernel<Tag, 16, 16><<<grid, kSumThreads, 0, s>>>(a);
-  else if (vec && a.L == 64 && a.w == 8 && direct)
-    summarize_kernel<Tag, 8, 8, true><<<grid, kSumThreads, 0, s>>>(a);
   else if (vec && a.L == 64 && a.w == 8)
     summarize_kernel<Tag, 8, 8><<<grid, kSumThreads, 0, s>>>(a);
   else

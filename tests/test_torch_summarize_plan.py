@@ -7,14 +7,13 @@ threads (the kernel's ``kSumThreads``), one (row, segment) pair each, so a
 tile is ``THREADS // w`` whole rows, and a persistent grid in which block
 ``b`` walks tiles ``b, b + grid, ...``.  These tests hold the plan and the
 kernel's constants, read from its source, to what the kernel needs (every
-row summarized once; the staged tile within the 48 KB of static shared
-memory, with a segment stride whose float4 reads hit eight different bank
-groups in each quarter warp).
+row summarized once; shared memory within the 48 KB a block has by
+default; at the compile-time shapes, each thread's float4 loads are its own
+segment, and a warp's loads read whole 32-byte sectors).
 
 Numpy models of the kernel's arithmetic are held against the plain twins
 bit for bit (the tolerance is none: both do the same float32 operations in
-the same order): the staging of a tile's rows by 16-byte copies into the
-padded layout; the PAA (the segment summed in index order from its first
+the same order): the PAA (the segment summed in index order from its first
 float, then divided by its length) and the code (``sax_code``'s binary
 search), also on PAAs that lie on breakpoints; and the key stage (one
 ballot per bit plane, bit-reversed and shifted into place, or
@@ -42,13 +41,11 @@ LANES = 32
 SRC = (Path(sx.__file__).parent / "csrc" / "summarize_tile.cuh").read_text()
 # the kernel's constants, as its source declares them
 KC = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", SRC)}
-STRIDE_PAD = int(re.search(r"kStride = SL \+ (\d+);", SRC).group(1))
 # the (L, w) shapes with a compile-time tile, as the dispatcher names them
 SHIPPED = sorted({(int(L), int(w)) for L, w in re.findall(
     r"a\.L == (\d+) && a\.w == (\d+)", SRC)})
 F32 = np.float32
-SMEM_SM = 233_472          # shared memory of an H100 SM
-SMEM_RESERVED = 1024       # of it, kept by the runtime for each block
+SECTOR = 32                # bytes of a device-memory sector
 
 
 def _ceil(a, b):
@@ -113,56 +110,46 @@ def test_shipped_shapes_are_the_configs():
     assert SHIPPED == [(64, 8), (256, 16)]
 
 
-@pytest.mark.parametrize("L,w", SHIPPED)
-def test_staged_tile_fits_default_shared_memory(L, w):
-    """Two buffers of THREADS segments at the padded stride and the
-    breakpoints: static, within 48 KB (no cudaFuncSetAttribute), and
-    BLOCKS_PER_SM blocks fit an SM."""
-    sl = L // w
-    smem = 2 * THREADS * (sl + STRIDE_PAD) * 4 + KC["kMaxBps"] * 4
-    assert smem <= 48 * 1024
-    assert BLOCKS_PER_SM * (smem + SMEM_RESERVED) <= SMEM_SM
+def test_tile_fits_default_shared_memory():
+    """The breakpoints are the kernel's only shared memory: static, far
+    within 48 KB (no cudaFuncSetAttribute), at the widest b."""
     assert KC["kMaxBps"] == (1 << 8) - 1
+    assert KC["kMaxBps"] * 4 <= 48 * 1024
+    assert "extern __shared__" not in SRC
 
 
 @pytest.mark.parametrize("L,w", SHIPPED)
-def test_staged_stride_is_free_of_bank_conflicts(L, w):
-    """Thread p reads float4 k of its segment at word p * stride + 4 k:
-    the 8 threads of each quarter warp hit 8 different 4-bank groups."""
+def test_shaped_loads_are_each_threads_segment(L, w):
+    """Thread tid of tile t reads float4s k = 0 .. sl / 4 - 1 at float
+    (t * THREADS + tid) * sl + 4 k: its own segment, and no float past
+    the last row; a warp's loads read each 32-byte sector of its span
+    whole, and no sector twice."""
     sl = L // w
-    stride = sl + STRIDE_PAD
-    assert stride % 4 == 0          # every segment starts 16-byte aligned
-    for k in range(sl // 4):
-        for q0 in range(0, LANES, 8):
-            groups = {((q0 + t) * stride // 4 + k) % 8 for t in range(8)}
-            assert len(groups) == 8, (sl, k, q0)
+    rows = THREADS // w
+    for n in (1, rows - 1, rows + 1, 3 * rows):
+        seen = np.zeros(n * L, dtype=np.int64)
+        for t in range(_ceil(n, rows)):
+            for tid in range(THREADS):
+                pair = t * THREADS + tid
+                if pair >= n * w:
+                    continue
+                for k in range(sl // 4):
+                    f0 = pair * sl + 4 * k
+                    r, s = divmod(pair, w)
+                    assert r * L + s * sl <= f0 < r * L + (s + 1) * sl
+                    seen[f0:f0 + 4] += 1
+        assert (seen == 1).all()
+    warp = np.arange(LANES)
+    sectors = np.concatenate([(warp * sl + 4 * k) * 4 // SECTOR
+                              for k in range(sl // 4)])
+    counts = np.bincount(sectors, minlength=LANES * sl * 4 // SECTOR)
+    assert (counts == SECTOR // 16).all()
 
 
 def _walks(rng, n, L):
     x = np.cumsum(rng.standard_normal((n, L)), axis=1)
     x = (x - x.mean(1, keepdims=True)) / (x.std(1, keepdims=True) + 1e-8)
     return x.astype(F32)
-
-
-@pytest.mark.parametrize("L,w", SHIPPED)
-def test_staging_model_puts_each_segment_at_its_thread(L, w):
-    """16-byte chunk c of a tile's rows goes to word (c // (sl / 4)) *
-    stride + 4 (c % (sl / 4)); thread p then reads its own segment, also
-    in a last tile of fewer rows."""
-    sl = L // w
-    stride, vecs, rows = sl + STRIDE_PAD, sl // 4, THREADS // w
-    rng = np.random.default_rng(L)
-    for tr in (rows, rows - 1, 1):
-        x = _walks(rng, tr, L)
-        buf = np.full(THREADS * stride, np.nan, dtype=F32)
-        flat = x.ravel()
-        for c in range(tr * L // 4):
-            dst = (c // vecs) * stride + 4 * (c % vecs)
-            buf[dst:dst + 4] = flat[4 * c:4 * c + 4]
-        for p in range(tr * w):
-            np.testing.assert_array_equal(
-                buf[p * stride:p * stride + sl],
-                x[p // w, (p % w) * sl:(p % w + 1) * sl])
 
 
 def _paa_model(x, w):

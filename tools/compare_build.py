@@ -12,11 +12,14 @@ one process:
   bit;
 * ``kernel_us``: the median of 200 CUDA-event times of one launch, each
   queued behind a 1 ms device sleep so that the host's launch cost is not
-  in the time, with the L2 flushed before each launch (as
-  ``chip_smoke.py`` times kernels): ``sax_summarize`` at 65,536 x 256 (one
-  external-sort chunk), ``fused_build`` at 8,388,608 x 256 (the tree
+  in the time, with the L2 flushed before each launch by zeroing 256 MiB
+  (as ``chip_smoke.py`` times kernels): ``sax_summarize`` at 65,536 x 256
+  (one external-sort chunk), ``fused_build`` at 8,388,608 x 256 (the tree
   build) and 1,048,576 x 256, and both kernels at 1,048,576 rows of
-  (L, w) = (64, 8) and (300, 12) (a shape of the generic tile);
+  (L, w) = (64, 8) and (300, 12) (a shape of the generic tile); and
+  ``sax_summarize`` at 65,536 x 256 with the L2 flushed by reading the
+  256 MiB instead ("read flush": the zeroing leaves 50 MB of dirty lines
+  in the L2, whose write-back then shares the kernel's time);
 * ``bound_us``: each case's least time, its bytes (inputs read once,
   outputs written once) over 3.35 TB/s;
 * ``floor_us``: the same timing of a one-element ``fill_``, the least
@@ -25,9 +28,7 @@ one process:
 Trees alternate A, B, B, A in each of ``--reps`` rounds; each number is
 the median over the rounds, and every round's value is printed too.
 ``--grids 132 264`` also times the first tree with each of those grids in
-place of its plan's own; ``--direct`` also times it with the tile that
-loads each segment into registers in place of the staged copy (where the
-tree has that switch).  ``--sass DIR`` writes each tree's SASS listing of
+place of its plan's own.  ``--sass DIR`` writes each tree's SASS listing of
 the two kernels to ``DIR`` (``cuobjdump -sass`` of its built library) and
 prints, for each kernel, its instruction count and each loop (a backward
 branch): its instructions and their kinds.  Prints one JSON line per run
@@ -58,14 +59,15 @@ MODULES = {"sx": "kernels.sax_summarize", "fb": "kernels.fused_build",
            "zo": "kernels.zorder", "ref": "kernels.ref",
            "S": "core.summarization", "keys": "core.keys",
            "loader": "kernels.loader"}
-# (kernel, N, L, w); b = 8 throughout
-CASES = (("sax_summarize", 65_536, 256, 16),
-         ("fused_build", 8_388_608, 256, 16),
-         ("fused_build", 1_048_576, 256, 16),
-         ("sax_summarize", 1_048_576, 64, 8),
-         ("fused_build", 1_048_576, 64, 8),
-         ("sax_summarize", 1_048_576, 300, 12),
-         ("fused_build", 1_048_576, 300, 12))
+# (kernel, N, L, w, how the L2 is flushed); b = 8 throughout
+CASES = (("sax_summarize", 65_536, 256, 16, "zero"),
+         ("fused_build", 8_388_608, 256, 16, "zero"),
+         ("fused_build", 1_048_576, 256, 16, "zero"),
+         ("sax_summarize", 1_048_576, 64, 8, "zero"),
+         ("fused_build", 1_048_576, 64, 8, "zero"),
+         ("sax_summarize", 1_048_576, 300, 12, "zero"),
+         ("fused_build", 1_048_576, 300, 12, "zero"),
+         ("sax_summarize", 65_536, 256, 16, "read"))
 BITS = 8
 SASS_KINDS = ("LDG", "LDGSTS", "LDS", "STS", "STG", "FADD", "MUFU", "I2F",
               "F2I", "IMAD", "IADD3", "LOP3", "SHF", "VOTE", "BREV", "BAR",
@@ -86,10 +88,10 @@ def bound_us(kernel: str, n: int, L: int, w: int, nw: int) -> float:
 
 
 def calls(t: dict, data: dict) -> dict:
-    """(kernel call, kernel, N, L, w) per case name."""
+    """(kernel call, kernel, N, L, w, flush) per case name."""
     sx, fb, S = t["sx"].sax_summarize, t["fb"].fused_build, t["S"]
     out = {}
-    for kernel, n, L, w in CASES:
+    for kernel, n, L, w, how in CASES:
         x = data[(n, L)]
         bps = S.breakpoints(BITS, device=x.device)
         if kernel == "sax_summarize":
@@ -98,7 +100,9 @@ def calls(t: dict, data: dict) -> dict:
         else:
             fn = (lambda x=x, bps=bps, w=w:
                   fb(x, bps, segments=w, bits=BITS))
-        out[f"{kernel} {n}x{L} w={w}"] = (fn, kernel, n, L, w)
+        name = f"{kernel} {n}x{L} w={w}" + (" read flush" if how == "read"
+                                             else "")
+        out[name] = (fn, kernel, n, L, w, how)
     return out
 
 
@@ -107,7 +111,7 @@ def same_bits(t: dict, data: dict) -> dict:
     sx, fb, zo, ref, S = (t[k] for k in ("sx", "fb", "zo", "ref", "S"))
     ok = {}
     for (n, L), x in data.items():
-        for w in sorted({c[3] for c in CASES if (c[1], c[2]) == (n, L)}):
+        for w in sorted({c[3] for c in CASES if c[1:3] == (n, L)}):
             bps = S.breakpoints(BITS, device=x.device)
             paa, codes = sx.sax_summarize(x, bps, segments=w, bits=BITS)
             f = fb.fused_build(x, bps, segments=w, bits=BITS)
@@ -181,8 +185,6 @@ def main() -> int:
                     help="directories that hold a repro_torch package")
     ap.add_argument("--grids", nargs="*", type=int, default=[],
                     help="grids to time the first tree with")
-    ap.add_argument("--direct", action="store_true",
-                    help="also time the first tree's direct-load tile")
     ap.add_argument("--sass", default=None,
                     help="write SASS listings here and print loop counts")
     ap.add_argument("--reps", type=int, default=5)
@@ -198,42 +200,35 @@ def main() -> int:
                                                        Path(args.sass))}))
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = {(n, L): walks(n, L, gen)
-            for n, L in sorted({(c[1], c[2]) for c in CASES})}
+            for n, L in sorted({c[1:3] for c in CASES})}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flushes = {"zero": flush, "read": lambda: flush.max()}
     one = torch.empty(1, device="cuda")
 
-    # a run: a tree, and what it sets before its cases and undoes after
-    runs = [(src, t, None, None) for src, t in zip(args.src, trees)]
-    for g in args.grids:
-        runs.append((f"{args.src[0]} grid {g}", trees[0], g, None))
-    if args.direct:
-        runs.append((f"{args.src[0]} direct", trees[0], None, 1))
+    # a run: a tree, and the grid its plan is given in place of its own
+    runs = [(src, t, None) for src, t in zip(args.src, trees)]
+    runs += [(f"{args.src[0]} grid {g}", trees[0], g) for g in args.grids]
 
-    def enter(t, grid, variant):
+    def enter(t, grid):
+        """Give the tree's plan the grid; returns its own plan."""
+        own = getattr(t["sx"], "launch_plan", None)
         if grid is not None:
-            own = t["sx"].launch_plan
-
-            def plan(n, w, own=own):
+            def plan(n, w):
                 return own(n, w)._replace(grid=grid)
             t["sx"].launch_plan = t["fb"].launch_plan = plan
-            return own
-        if variant is not None:
-            t["loader"].library().coconut_summarize_variant(variant)
-        return None
+        return own
 
-    def leave(t, grid, variant, own):
+    def leave(t, grid, own):
         if grid is not None:
             t["sx"].launch_plan = t["fb"].launch_plan = own
-        if variant is not None:
-            t["loader"].library().coconut_summarize_variant(0)
 
     out = []
-    for src, t, grid, variant in runs:
-        own = enter(t, grid, variant)
+    for src, t, grid in runs:
+        own = enter(t, grid)
         bits = same_bits(t, data)
-        leave(t, grid, variant, own)
+        leave(t, grid, own)
         cs = calls(t, data)
-        nw = {w: t["keys"].n_key_words(w, BITS) for *_, w in CASES}
+        nw = {c[3]: t["keys"].n_key_words(c[3], BITS) for c in CASES}
         out.append({"src": src, "bits": bits, "cases": cs,
                     "bound_us": {k: bound_us(c[1], c[2], c[3], c[4],
                                              nw[c[4]])
@@ -244,12 +239,12 @@ def main() -> int:
     for _ in range(args.reps):
         floor.append(event_us(lambda: one.fill_(0.0)))
         for i in order + order[::-1]:
-            _, t, grid, variant = runs[i]
+            _, t, grid = runs[i]
             o = out[i]
-            own = enter(t, grid, variant)
+            own = enter(t, grid)
             for name, c in o["cases"].items():
-                o["kernel_us"][name].append(event_us(c[0], flush))
-            leave(t, grid, variant, own)
+                o["kernel_us"][name].append(event_us(c[0], flushes[c[5]]))
+            leave(t, grid, own)
     print(torch.cuda.get_device_name(0))
     print(json.dumps({"floor_us": statistics.median(floor), "rounds": floor}))
     for o in out:

@@ -31,14 +31,16 @@ def load(src: str, alias: str, modules: dict) -> dict:
             for name, path in modules.items()}
 
 
-def event_us(fn, flush: torch.Tensor | None = None) -> float:
+def event_us(fn, flush=None) -> float:
     """The median of ``EVENT_REPS`` CUDA-event times of ``fn()``, each
     queued behind a device sleep so that the host's launch cost is not in
-    the time (as ``chip_smoke.py`` times kernels); ``flush`` is zeroed
-    before each call to empty the L2."""
+    the time (as ``chip_smoke.py`` times kernels); ``flush``, a tensor, is
+    zeroed before each call to empty the L2 (or, a function, is called)."""
     times = []
     for _ in range(EVENT_REPS):
-        if flush is not None:
+        if callable(flush):
+            flush()
+        elif flush is not None:
             flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
