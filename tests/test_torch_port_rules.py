@@ -1,7 +1,8 @@
 """The port's rules: it stands alone and runs where the caller says.
 
 * ``repro_torch`` imports with ``jax`` and the reference package ``repro``
-  blocked, and no source file names them;
+  blocked, and no source file names them (nor ``chip_smoke.py`` and the
+  compare tools, which run on the card's machine);
 * a numpy input defaults to the CUDA device, so without one an entry point
   raises instead of running on the CPU;
 * a tensor on a device with no kernel raises; there is no fallback to a
@@ -47,13 +48,26 @@ def test_imports_with_jax_and_reference_blocked():
     assert out.stdout.strip() == "ok"
 
 
+BAD_IMPORT = re.compile(r"^\s*(import jax|from jax|from repro\.|"
+                        r"import repro\.|from repro import|import repro\s*$)",
+                        re.M)
+
+
 def test_no_source_names_jax_or_the_reference():
-    bad = re.compile(r"^\s*(import jax|from jax|from repro\.|import repro\.|"
-                     r"from repro import|import repro\s*$)", re.M)
     files = list(PKG.rglob("*.py"))
     assert len(files) > 20
     for f in files:
-        assert not bad.search(f.read_text()), f
+        assert not BAD_IMPORT.search(f.read_text()), f
+
+
+def test_chip_scripts_name_neither_jax_nor_the_reference():
+    """chip_smoke.py and the compare tools run on the card's machine,
+    which has no jax."""
+    root = PKG.parents[1]
+    files = [root / "chip_smoke.py", *sorted((root / "tools").glob("*.py"))]
+    assert len(files) >= 5
+    for f in files:
+        assert not BAD_IMPORT.search(f.read_text()), f
 
 
 def test_numpy_build_defaults_to_cuda():
