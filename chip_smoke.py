@@ -18,8 +18,10 @@ against the tree's, exact k-NN straight off the file (``unpack_mindist``
 per leaf group), through the tiered leaf store, and ``tree.load`` of the
 file.  Then every kernel is timed at the main path's shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
-median rows per launch and at Q=1) beside its bound, its twin and, where
-one exists, a PyTorch library call.  Every phase raises on failure.  The
+median rows per launch and at Q=1; ``zorder`` also over the tree's
+8,388,608 rows, and at the chunk with the L2 warm and flushed by a read)
+beside its bound, its twin and, where one exists, a PyTorch library
+call.  Every phase raises on failure.  The
 last lines are the kernels' JSON record, the card's name and power
 limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -84,13 +86,18 @@ class Timer:
         self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
                                  device=DEVICE)
 
-    def ms(self, fn, reps: int = TIMED, cold: bool = True) -> float:
+    def ms(self, fn, reps: int = TIMED, cold: bool = True,
+           read: bool = False) -> float:
+        """``cold``: the L2 flushed by zeroing 256 MiB, which leaves it
+        full of dirty lines, or with ``read`` by reading them."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            if cold:
+            if cold and read:
+                self.flush.max()
+            elif cold:
                 self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)
@@ -203,12 +210,13 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
                      torch.gather(ed, 1, idx))
     # the storage path's kernels, also at b = 3, 5 (packed symbols that
     # straddle bytes) and at a shape of the summarize tile's generic path
-    # (L = 300, w = 12), each against its twin and against the kernels it
-    # must equal: sax_summarize + zorder == fused_build, unpack_mindist ==
-    # mindist_batch on the decoded codes
+    # (L = 300, w = 12, zorder's run_word) and at w = 64 (a row across two
+    # warps), each against its twin and against the kernels it must equal:
+    # sax_summarize + zorder == fused_build, unpack_mindist == mindist_batch
+    # on the decoded codes
     for b in (1, 3, 4, 5, 8):
         for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b),
-                    S.SummaryConfig(300, 12, b)):
+                    S.SummaryConfig(300, 12, b), S.SummaryConfig(256, 64, b)):
             lower, upper = S.region_bounds(b, device=dev)
             bps = S.breakpoints(b, device=dev)
             scale = cfg.series_len / cfg.segments
@@ -862,6 +870,10 @@ def main() -> int:
              ref.sax_summarize_ref(chunk, bps, segments=w)[0]),
             ("zorder", ops.zorder(c_codes, cfg),
              ref.zorder_ref(c_codes, w=w, b=cfg.bits)),
+            ("zorder_tree", ops.zorder(tree.codes, cfg),
+             ref.zorder_ref(tree.codes, w=w, b=cfg.bits)),
+            ("zorder_tree vs fused_build", ops.zorder(tree.codes, cfg),
+             tree.keys),
             ("unpack_mindist", ops.mindist_batch_packed(q_paas, pk_hot, cfg),
              ref.mindist_batch_packed_ref(q_paas, pk_host, lower, upper,
                                           scale, w=w, b=cfg.bits))):
@@ -978,6 +990,17 @@ def main() -> int:
             plain=lambda: ref.zorder_ref(c_codes, w=w, b=cfg.bits),
             library=None,
             bound=bound_ms(nc * (w + cfg.n_words * 8), nc * w * cfg.bits)),
+        "zorder_tree": dict(
+            source="src/repro_torch/kernels/csrc/zorder.cu",
+            replaces="src/repro/kernels/zorder.py:45",
+            shape=f"N={tree.n} x w={w} codes -> {cfg.n_words} words (the "
+                  f"tree's codes; not a main-path shape)",
+            launches_of="zorder",
+            fn=lambda: ops.zorder(tree.codes, cfg),
+            plain=lambda: ref.zorder_ref(tree.codes, w=w, b=cfg.bits),
+            library=None,
+            bound=bound_ms(tree.n * (w + cfg.n_words * 8),
+                           tree.n * w * cfg.bits)),
         "unpack_mindist": dict(
             source="src/repro_torch/kernels/csrc/unpack_mindist.cu",
             replaces="src/repro/kernels/unpack_mindist.py:83",
@@ -1035,6 +1058,14 @@ def main() -> int:
               f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}), launches "
               f"{launches.get(name, 0)}")
+
+    # zorder at the chunk with the L2 as pass 1 may find it: the codes
+    # sax_summarize just wrote (warm), and cold without the dirty lines
+    # that the zeroing flush leaves (flushed by a read)
+    zo_warm = timer.ms(lambda: ops.zorder(c_codes, cfg), cold=False)
+    zo_read = timer.ms(lambda: ops.zorder(c_codes, cfg), read=True)
+    print(f"kernel zorder [N={nc} x w={w}]: L2 warm {zo_warm:.4f} ms, L2 "
+          f"flushed by a read {zo_read:.4f} ms")
 
     # ops.mindist is the Q = 1 case of mindist_batch (the single-query TPU
     # kernel's function); it is not on the main path, so it has no record

@@ -99,25 +99,6 @@ __device__ __forceinline__ int sax_code(float v, const float* bps, int bits) {
   return pos;
 }
 
-// Word kw of a row's z-order key from its w codes: global bit p = i * w + j
-// (MSB first) is bit bits - 1 - i of segment j; a last word the w * bits bits
-// do not fill is left-aligned.  Codes are read as c[j * stride].
-template <typename Code>
-__device__ __forceinline__ unsigned zorder_word(const Code* c, int stride,
-                                                int kw, int w, int bits) {
-  const int total = w * bits;
-  unsigned word = 0;
-  for (int b = 0; b < 32; ++b) {
-    const int p = kw * 32 + b;
-    if (p >= total) break;
-    const int i = p / w;
-    const int j = p - i * w;
-    word |= ((static_cast<unsigned>(c[j * stride]) >> (bits - 1 - i)) & 1u)
-            << (31 - b);
-  }
-  return word;
-}
-
 // Symbol j of a bit-packed code row of pw bytes whose byte m is byte(m):
 // it sits MSB first at bit j * b and is read through the two-byte window at
 // byte j * b / 8.  A window that would reach past the row reads a zero byte

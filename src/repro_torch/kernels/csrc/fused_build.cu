@@ -17,10 +17,10 @@
 // segment length (the order of the PAA in core/summarization.py), and finds
 // its code by a branch-free binary search over the 2^b - 1 breakpoints (the
 // count of breakpoints <= PAA, i.e. searchsorted side="right").  The key
-// stage runs on every thread: bit plane i of a warp's codes is one ballot,
-// and __brev puts a row's bits MSB first at global bit p = i * w + j (bit
-// b - 1 - i of segment j), the bits of zorder_word, which the zorder kernel
-// runs.  The summation order differs from jnp.mean's only if XLA reorders
+// stage is key_stage.cuh's, which the zorder kernel runs too: at a width
+// that is a power of two, bit plane i of a warp's codes is one ballot, and
+// __brev puts a row's bits MSB first at global bit p = i * w + j (bit
+// b - 1 - i of segment j).  The summation order differs from jnp.mean's only if XLA reorders
 // it, so a PAA may differ from the reference's by an ulp and flip a code
 // whose PAA lies within an ulp of a breakpoint.
 // FMA contraction: none (see common.cuh).

@@ -29,17 +29,14 @@
 // plain twins); the code by sax_code's binary search over the breakpoints.
 // So both tiles, and both kernels, give the same bits.
 //
-// Keys: where w divides 32 (a warp holds 32 / w whole rows) or is a
-// multiple of 32 (a row spans w / 32 warps), bit plane i of the codes (bit
-// b - 1 - i of each) is one __ballot_sync over the warp's codes held lane
-// by lane, and __brev with a shift puts the row's w bits MSB first at
-// global key bit i * w (ballot_keys).  Other widths build each word with
-// zorder_word from the tile's codes just written.  Both give zorder_word's
-// bits, which the zorder kernel runs: sax_summarize + zorder ==
-// fused_build.
+// Keys: the key stage of key_stage.cuh, which the zorder kernel runs too,
+// so sax_summarize + zorder == fused_build.  Where w is a power of two, each
+// lane's code goes straight from registers into ballot_keys (the tile's
+// pairs are its layout); at every other width, once the tile's codes are
+// written, thread r builds row r's key with row_key from them.
 #pragma once
 
-#include "common.cuh"
+#include "key_stage.cuh"
 
 namespace coconut {
 
@@ -65,64 +62,6 @@ struct FusedBuild {
   static constexpr bool kKeys = true;
 };
 
-// Is the key stage ballot_keys (else zorder_word) at width w?
-__host__ __device__ constexpr bool ballot_width(int w) {
-  return 32 % w == 0 || w % 32 == 0;
-}
-
-// The key words of the rows whose pairs a warp holds, from each lane's
-// code.  p is the lane's pair in the tile (p % 32 is its lane); pairs at or
-// past live_pairs are not in the tile and add no bit; keys points at the
-// tile's first row.  Every lane of the warp calls it.  W = 0: w at run time.
-template <int W>
-__device__ __forceinline__ void ballot_keys(int code, int p, int live_pairs,
-                                            int w_rt, int bits, int nw,
-                                            long long* __restrict__ keys) {
-  const int w = W > 0 ? W : w_rt;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const bool live = p < live_pairs;
-  // the code MSB first from bit 31: plane i is bit 31 - i
-  const unsigned c = live ? static_cast<unsigned>(code) << (32 - bits) : 0u;
-  if (w <= kWarp) {
-    // the warp holds rows r0 .. r0 + 32 / w - 1; lane l builds word kw of
-    // row r0 + g (l = g * nw + kw)
-    const int r0 = (p - lane) / w;
-    const int g = lane / nw;
-    const int kw = lane - g * nw;
-    const bool mine = g < kWarp / w;
-    const int gw = mine ? g * w : 0;
-    unsigned word = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxBits; ++i) {
-      if (i < bits) {
-        const unsigned bal = __ballot_sync(kFull, (c >> (31 - i)) & 1u);
-        const int bit0 = i * w;        // the plane's first global key bit
-        if ((bit0 >> 5) == kw) {
-          const unsigned f = (bal >> gw) & (kFull >> (kWarp - w));
-          word |= (__brev(f) >> (kWarp - w)) << (kWarp - w - (bit0 & 31));
-        }
-      }
-    }
-    if (mine && (r0 + g) * w < live_pairs)
-      keys[static_cast<long long>(r0 + g) * nw + kw] = word;
-  } else {
-    // a row spans w / 32 warps; this one holds segments 32 h .. 32 h + 31,
-    // which are word i * w / 32 + h of plane i, MSB first
-    const int r = p / w;
-    const int h = (p - r * w) / kWarp;
-    unsigned word = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxBits; ++i) {
-      if (i < bits) {
-        const unsigned bal = __ballot_sync(kFull, (c >> (31 - i)) & 1u);
-        if (lane == i) word = __brev(bal);
-      }
-    }
-    if (live && lane < bits)
-      keys[static_cast<long long>(r) * nw + lane * (w / kWarp) + h] = word;
-  }
-}
-
 // The tile at a compile-time shape: SL floats a segment, W segments a row.
 template <typename Tag, int SL, int W>
 __device__ __forceinline__ void shaped_tiles(const SumArgs& a,
@@ -142,6 +81,8 @@ __device__ __forceinline__ void shaped_tiles(const SumArgs& a,
       for (int k = 0; k < kVecs; ++k) f[k] = __ldg(src + k);
     }
   };
+  KeyLane kl{};
+  if constexpr (Tag::kKeys) kl = key_lane(W, a.nw);
   float4 cur[kVecs], next[kVecs];
   long long t = blockIdx.x;
   if (t < tiles) load(t, cur);
@@ -165,8 +106,8 @@ __device__ __forceinline__ void shaped_tiles(const SumArgs& a,
       a.codes[row0 * W + tid] = static_cast<uint8_t>(code);
     }
     if constexpr (Tag::kKeys)
-      ballot_keys<W>(code, tid, live_pairs, W, a.bits, a.nw,
-                     a.keys + row0 * a.nw);
+      ballot_keys<W>(kl, tid < live_pairs ? code : 0, tid, live_pairs,
+                     a.bits, a.nw, a.keys + row0 * a.nw);
 #pragma unroll
     for (int k = 0; k < kVecs; ++k) cur[k] = next[k];
   }
@@ -180,6 +121,10 @@ __device__ __forceinline__ void generic_tiles(const SumArgs& a,
   const int rows = w <= kSumThreads ? kSumThreads / w : 1;
   const long long tiles = (a.n + rows - 1) / rows;
   const bool ballot = ballot_width(w);
+  KeyLane kl{};
+  if constexpr (Tag::kKeys) {
+    if (ballot) kl = key_lane(w, a.nw);
+  }
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long row0 = t * rows;
     const int tr = static_cast<int>(min(static_cast<long long>(rows),
@@ -201,18 +146,28 @@ __device__ __forceinline__ void generic_tiles(const SumArgs& a,
       }
       if constexpr (Tag::kKeys) {
         if (ballot)
-          ballot_keys<0>(code, p, live_pairs, w, a.bits, a.nw,
+          ballot_keys<0>(kl, code, p, live_pairs, a.bits, a.nw,
                          a.keys + row0 * a.nw);
       }
     }
     if constexpr (Tag::kKeys) {
       if (!ballot) {
         __syncthreads();    // the tile's codes, written above, are visible
-        for (int q = threadIdx.x; q < tr * a.nw; q += kSumThreads) {
-          const int r = q / a.nw;
-          const int kw = q - r * a.nw;
-          a.keys[(row0 + r) * a.nw + kw] = static_cast<long long>(
-              zorder_word(a.codes + (row0 + r) * w, 1, kw, w, a.bits));
+        for (int r = threadIdx.x; r < tr; r += kSumThreads) {
+          const uint8_t* row = a.codes + (row0 + r) * w;
+          long long* key = a.keys + (row0 + r) * a.nw;
+          const auto code4 = [&](int j) {
+            unsigned x = 0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (j + e < w) x |= static_cast<unsigned>(row[j + e]) << (8 * e);
+            return x;
+          };
+          const auto store = [&](int kw, unsigned word) { key[kw] = word; };
+          if (w <= kMaxW)
+            row_key<false>(code4, w, a.bits, store);
+          else
+            row_key<true>(code4, w, a.bits, store);
         }
       }
     }

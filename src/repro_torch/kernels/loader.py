@@ -57,7 +57,7 @@ _SIGNATURES = {
     "coconut_scan_verify": [_P] * 14 + [_I] * 6 + [_F] + [_I] * 4 + [_P, _P],
     "coconut_fused_build": [_P] * 5 + [_LL, _I, _I, _I, _I, _I, _P],
     "coconut_sax_summarize": [_P] * 4 + [_LL, _I, _I, _I, _I, _P],
-    "coconut_zorder": [_P, _P, _LL, _I, _I, _I, _P],
+    "coconut_zorder": [_P, _P, _LL] + [_I] * 5 + [_P],
     "coconut_unpack_mindist": [_P] * 5 + [_I, _LL, _I, _I, _I, _I, _F]
     + [_I] * 3 + [_P],
 }

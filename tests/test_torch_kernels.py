@@ -15,7 +15,10 @@ of its plan, w in {8, 16, 64}, every b, at every byte offset; the
 summarize tile of ``sax_summarize`` and ``fused_build`` at every tile
 edge and the persistent grid's wrap, its compile-time and generic shapes
 (w dividing 32, a multiple of 32, neither; L up to 60,000), at every
-4-byte offset.  Cross-kernel identities:
+4-byte offset; ``zorder`` at every w <= 64 (its ballot widths, compile-time
+and not, and its run_word widths), b in {1, 3, 5, 8}, N at one row, a
+ragged 31, one past a tile and one past a chunk, from row slices that are
+not 16-byte aligned, words with their top bit set.  Cross-kernel identities:
 ``sax_summarize`` + ``zorder`` == ``fused_build`` and ``unpack_mindist``
 == ``mindist_batch`` on the decoded codes, bit for bit.
 ``chip_smoke.py``'s kernel phase runs the same checks.
@@ -34,6 +37,7 @@ from repro_torch.kernels.sax_summarize import BLOCKS_PER_SM as SUM_BLOCKS_PER_SM
 from repro_torch.kernels.sax_summarize import SMS as SUM_SMS
 from repro_torch.kernels.sax_summarize import launch_plan as sum_plan
 from repro_torch.kernels.scan_verify import launch_plan
+from repro_torch.kernels.zorder import launch_plan as zorder_plan
 from repro_torch.storage.packing import pack_codes
 
 NS = (1, 257, 2000 + 37)
@@ -632,3 +636,74 @@ def test_summarize_tile_long_rows(cuda, w):
     x = torch.from_numpy(_walks(np.random.default_rng(w), 3,
                                 60_000)).to(cuda)
     _summaries_same_as_twins(x, cfg)
+
+
+# zorder: every width (the ballot widths 8, 16, 64 at compile time, 1, 2,
+# 4, 32 at run time; the rest through run_word), b where codes straddle
+# nibbles, N at one row, a ragged 31, one past a tile and past a chunk
+ZO_BITS = (1, 3, 5, 8)
+
+
+def _zorder_same_as_twin(codes, w, b):
+    cfg = S.SummaryConfig(w, w, b)
+    keys = ops.zorder(codes, cfg)
+    torch.cuda.synchronize()
+    _same(keys, ref.zorder_ref(codes, w=w, b=b))
+    return keys
+
+
+@pytest.mark.parametrize("w", range(1, 65))
+def test_zorder_kernel_sweep(cuda, w):
+    rng = np.random.default_rng(w)
+    ns = sorted({1, 31, zorder_plan(1, w).rows + 1, 65_537})
+    for b in ZO_BITS:
+        codes = torch.from_numpy(rng.integers(0, 1 << b, (ns[-1], w),
+                                              dtype=np.uint8)).to(cuda)
+        for n in ns:
+            keys = _zorder_same_as_twin(codes[:n], w, b)
+            _same(keys, ops.zorder(codes[:n].cpu(), S.SummaryConfig(w, w, b)))
+
+
+@pytest.mark.parametrize("w", (1, 3, 8, 12, 16, 20, 63, 64))
+def test_zorder_kernel_offset_views(cuda, w):
+    """Row slices: codes[1:] (16-byte aligned only where 16 divides w) and
+    a view at every byte offset of a 16-byte word, both load paths: the
+    same keys as the aligned rows."""
+    rng = np.random.default_rng(30 + w)
+    n = 2 * zorder_plan(1, w).rows + 5
+    codes = torch.from_numpy(rng.integers(0, 256, (n, w),
+                                          dtype=np.uint8)).to(cuda)
+    want = _zorder_same_as_twin(codes, w, 8)
+    _same(_zorder_same_as_twin(codes[1:], w, 8), want[1:])
+    _same(_zorder_same_as_twin(codes[3:-2], w, 8), want[3:-2])
+    for off in range(16):
+        buf = torch.zeros(codes.numel() + 16, dtype=torch.uint8, device=cuda)
+        view = buf[off:off + codes.numel()].view(codes.shape)
+        view.copy_(codes)
+        _same(_zorder_same_as_twin(view, w, 8), want)
+
+
+@pytest.mark.parametrize("w", (16, 12, 64, 8))
+def test_zorder_kernel_top_bit_words(cuda, w):
+    """Code 128 in segment 0 at b = 8 sets bit 31 of word 0: the int64
+    word is 2^31 exactly (zero-extended, never negative)."""
+    codes = torch.zeros((300, w), dtype=torch.uint8, device=cuda)
+    codes[:, 0] = 128
+    keys = _zorder_same_as_twin(codes, w, 8)
+    assert (keys[:, 0] == 1 << 31).all() and (keys >= 0).all()
+    full = _zorder_same_as_twin(torch.full_like(codes, 255), w, 8)
+    assert (full == (1 << 32) - 1).sum() > 0 and (full >= 0).all()
+
+
+@pytest.mark.parametrize("L,w", ((256, 16), (64, 8), (300, 12)))
+def test_sax_summarize_and_zorder_equal_fused_build(cuda, L, w):
+    """The two construction stages and the fused kernel, bit for bit, at
+    one external-sort chunk and a ragged tail, every b."""
+    x = torch.from_numpy(_walks(np.random.default_rng(L + w), 65_536 + 17,
+                                L)).to(cuda)
+    for b in range(1, 9):
+        cfg = S.SummaryConfig(L, w, b)
+        paa, codes = ops.sax_summarize(x, cfg)
+        keys = _zorder_same_as_twin(codes, w, b)
+        for g, want in zip((paa, codes, keys), ops.summarize_and_key(x, cfg)):
+            _same(g, want)

@@ -15,10 +15,12 @@ Numpy models of the kernel's arithmetic are held against the plain twins
 bit for bit (the tolerance is none: both do the same float32 operations in
 the same order): the PAA (the segment summed in index order from its first
 float, then divided by its length) and the code (``sax_code``'s binary
-search), also on PAAs that lie on breakpoints; and the key stage (one
-ballot per bit plane, bit-reversed and shifted into place, or
-``zorder_word`` at the other widths) against ``ref.zorder_ref`` and
-``core.keys.interleave_codes``.
+search), also on PAAs that lie on breakpoints; and the key stage of
+``csrc/key_stage.cuh`` (one ballot per bit plane, placed and bit-reversed,
+where w is a power of two; ``row_key``'s plane accumulators, four codes at
+a time, streamed out word by word, elsewhere) against ``ref.zorder_ref`` and
+``core.keys.interleave_codes``.  ``tests/test_torch_zorder_plan.py`` runs
+the same models over the ``zorder`` kernel's tiles.
 """
 from __future__ import annotations
 
@@ -205,79 +207,171 @@ def test_paa_and_code_model_match_the_twin(L, w, b):
         np.testing.assert_array_equal(hit, bps)     # PAAs on breakpoints
 
 
-def _brev(v: int) -> int:
-    """__brev of a 32-bit value."""
-    return int(f"{v:032b}"[::-1], 2)
+def _brev(v):
+    """__brev of 32-bit values (an int or a uint64 array)."""
+    v = np.asarray(v, dtype=np.uint64)
+    out = np.zeros_like(v)
+    for k in range(32):
+        out |= ((v >> np.uint64(k)) & np.uint64(1)) << np.uint64(31 - k)
+    return out
 
 
-def _ballot_keys_model(codes, w, b):
-    """ballot_keys over a launch, lane by lane as the kernel computes it:
-    pairs p = r * w + s of each tile, lane p % 32; bal_i has bit l set when
-    lane l's pair is live and bit b - 1 - i of its code is 1."""
+def _byte_perm(x, y, sel):
+    """__byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of the
+    eight bytes of y:x (x's bytes first)."""
+    out = np.zeros_like(x)
+    for i in range(4):
+        k = (sel >> (4 * i)) & 7
+        src = x if k < 4 else y
+        out |= ((src >> np.uint64(8 * (k & 3))) & np.uint64(0xFF)) \
+            << np.uint64(8 * i)
+    return out
+
+
+def _ballot_keys_model(codes, w, b, rows, slots=False):
+    """ballot_keys over tiles of ``rows`` rows, lane by lane as the kernel
+    computes it, vectorized over the warps: pairs p = r * w + s of a tile,
+    warp p // 32, lane p % 32; bal_i has bit l set when lane l's pair is
+    live and bit b - 1 - i of its code is 1, for all 8 planes (the planes
+    past b are zero).  ``slots``: at w = 16 and 8, the compile-time
+    assembly (each candidate word gathered by byte permutes, the lane's
+    picked) in place of the run-time one (each plane ORed where its word
+    is the lane's)."""
     n = codes.shape[0]
     nw = K.n_key_words(w, b)
-    rows = launch_plan(n, w).rows
+    lw = w.bit_length() - 1
+    assert 1 << lw == w and (rows * w) % LANES == 0
+    u = np.uint64
+    full = u(0xFFFFFFFF)
     keys = np.full((n, nw), -1, dtype=np.int64)     # each word set once
-    full = 0xFFFFFFFF
+    lane = np.arange(LANES)
     for row0 in range(0, n, rows):
         tr = min(rows, n - row0)
         live_pairs = tr * w
-        flat = [int(c) for c in codes[row0:row0 + tr].reshape(-1)]
-        for p0 in range(0, rows * w, THREADS):
-            for first in range(p0, p0 + THREADS, LANES):
-                live = [first + ln < live_pairs for ln in range(LANES)]
-                code = [flat[first + ln] if live[ln] else 0
-                        for ln in range(LANES)]
-                bal = [sum(((code[ln] >> (b - 1 - i)) & 1) << ln
-                           for ln in range(LANES) if live[ln])
-                       for i in range(b)]
-                if w <= LANES:
-                    r0 = first // w
-                    for ln in range(LANES):
-                        g, kw = divmod(ln, nw)
-                        if g >= LANES // w:
-                            continue
-                        word = 0
-                        for i in range(b):
-                            bit0 = i * w
-                            if bit0 >> 5 != kw:
-                                continue
-                            f = (bal[i] >> (g * w)) & (full >> (LANES - w))
-                            word |= ((_brev(f) >> (LANES - w))
-                                     << (LANES - w - (bit0 & 31))) & full
-                        if (r0 + g) * w < live_pairs:
-                            assert keys[row0 + r0 + g, kw] == -1
-                            keys[row0 + r0 + g, kw] = word
-                elif live[0]:
-                    r, s = divmod(first, w)
-                    for i in range(b):
-                        kw = i * (w // LANES) + s // LANES
-                        assert keys[row0 + r, kw] == -1
-                        keys[row0 + r, kw] = _brev(bal[i])
+        pairs = np.zeros(rows * w, dtype=np.uint64)
+        pairs[:live_pairs] = codes[row0:row0 + tr].reshape(-1)
+        c = (pairs << u(32 - b)).reshape(-1, LANES)          # [warps, 32]
+        bal = [((c >> u(31 - i)) & u(1)) << lane.astype(np.uint64)
+               for i in range(8)]
+        bal = [v.sum(axis=1, dtype=np.uint64) for v in bal]  # [warps]
+        first = np.arange(0, rows * w, LANES)                 # p - lane
+        if w <= LANES:
+            row_mask = full >> u(LANES - w)
+            for ln in range(LANES):
+                g, kw = divmod(ln, nw)
+                mine = g < LANES // w
+                gw = u(g * w if mine else 0)
+                t = np.zeros(len(first), dtype=np.uint64)
+                perm = (0x5410 + 0x2222 * (g & 1) if w == 16
+                        else 0x40 + 0x11 * (g & 3))
+                if slots and w == 16:
+                    cands = [_byte_perm(bal[2 * c], bal[2 * c + 1], perm)
+                             for c in range(4)]
+                    t = cands[kw] if kw < 4 else cands[0]
+                elif slots and w == 8:
+                    cands = [_byte_perm(
+                        _byte_perm(bal[4 * c], bal[4 * c + 1], perm),
+                        _byte_perm(bal[4 * c + 2], bal[4 * c + 3], perm),
+                        0x5410) for c in range(2)]
+                    t = cands[kw] if kw < 2 else cands[0]
+                else:
+                    for i in range(8):
+                        bit0 = i * w
+                        if bit0 >> 5 == kw:
+                            t |= ((bal[i] >> gw) & row_mask) << u(bit0 & 31)
+                row = (first >> lw) + g
+                ok = mine & ((row << lw) < live_pairs)
+                assert (keys[row0 + row[ok], kw] == -1).all()
+                keys[row0 + row[ok], kw] = _brev(t[ok] & full)
+        else:
+            r = first >> lw
+            h = (first & (w - 1)) >> 5
+            ok = first < live_pairs
+            for ln in range(b):          # lane i < b stores plane i
+                assert (keys[row0 + r[ok], ln * (w >> 5) + h[ok]] == -1).all()
+                keys[row0 + r[ok], ln * (w >> 5) + h[ok]] = _brev(bal[ln][ok])
     return keys
 
 
-def _zorder_word_model(codes, w, b):
-    """zorder_word: global bit p = i * w + j (MSB first) of word p // 32."""
-    n = codes.shape[0]
+def _plane_nibble(x, sh):
+    """plane_nibble: bit sh of four little-endian codes, MSB first."""
+    x = np.asarray(x, dtype=np.uint64)
+    return ((((x >> np.uint64(sh)) & np.uint64(0x01010101))
+             * np.uint64(0x80402010)) & np.uint64(0xFFFFFFFF)) >> np.uint64(28)
+
+
+def _row_key_model(code4, w, b, wide=False):
+    """row_key for every row at once (each row runs the same steps): the
+    key's bits appended in order to a 64-bit buffer, each word stored once
+    it is whole, the last left-aligned.  Without ``wide`` (w <= 64) each
+    group of four codes is read once into eight plane accumulators;
+    ``wide`` streams plane by plane.  ``code4(j)`` gives each row's codes
+    j .. j + 3 as a little-endian uint32.  Returns {word: values}, in the
+    order stored."""
+    u = np.uint64
+    st = {"buf": u(0), "held": 0, "kw": 0, "out": {}}
+
+    def append(v, n):
+        st["buf"] = (st["buf"] << u(n)) | v
+        st["held"] += n
+        if st["held"] >= 32:
+            st["held"] -= 32
+            assert st["kw"] not in st["out"]
+            st["out"][st["kw"]] = (st["buf"] >> u(st["held"])) & u(0xFFFFFFFF)
+            st["kw"] += 1
+
+    if not wide:
+        assert w <= 64
+        acc = [u(0)] * 8
+        for j in range(0, w, 4):
+            take = min(4, w - j)
+            x = code4(j)
+            for sh in range(8):
+                acc[sh] = (acc[sh] << u(take)) | (_plane_nibble(x, sh)
+                                                  >> u(4 - take))
+        for sh in range(7, -1, -1):
+            if sh < b:
+                if w > 32:
+                    append((acc[sh] >> u(32)) & u(0xFFFFFFFF), w - 32)
+                append(acc[sh] & u(0xFFFFFFFF), min(w, 32))
+    else:
+        for sh in range(b - 1, -1, -1):
+            for j in range(0, w, 4):
+                take = min(4, w - j)
+                append(_plane_nibble(code4(j), sh) >> u(4 - take), take)
+    if st["held"]:
+        st["out"][st["kw"]] = ((st["buf"] << u(32 - st["held"]))
+                               & u(0xFFFFFFFF))
+    return st["out"]
+
+
+def _row_code4(codes):
+    """code4 of the summarize tile's generic path: a row's codes read from
+    device memory, four at a time, a code past the row read as 0."""
+    w = codes.shape[1]
+    padded = np.zeros((codes.shape[0], w + 3), dtype=np.uint64)
+    padded[:, :w] = codes
+
+    def code4(j):
+        return sum(padded[:, j + e] << np.uint64(8 * e) for e in range(4))
+    return code4
+
+
+def _row_keys_model(codes, w, b, wide=False):
+    """row_key over every row, from device memory: [n, nw] keys, every
+    word stored once, in order."""
     nw = K.n_key_words(w, b)
-    keys = np.zeros((n, nw), dtype=np.int64)
-    for kw in range(nw):
-        for bit in range(32):
-            p = kw * 32 + bit
-            if p >= w * b:
-                break
-            i, j = divmod(p, w)
-            keys[:, kw] |= ((codes[:, j].astype(np.int64) >> (b - 1 - i))
-                            & 1) << (31 - bit)
-    return keys
+    out = _row_key_model(_row_code4(codes), w, b, wide)
+    assert list(out) == list(range(nw))
+    return np.stack([np.broadcast_to(out[kw], (codes.shape[0],))
+                     for kw in range(nw)], axis=1).astype(np.int64)
 
 
 @pytest.mark.parametrize("b", range(1, 9))
 def test_key_stage_model_matches_zorder(b):
-    """Every w <= 64: the ballot stage where w divides 32 or is a multiple
-    of it, zorder_word elsewhere; rows of a full tile, a partial tile and a
-    single row; against the twin and interleave_codes."""
+    """Every w <= 64: ballot_keys where w is a power of two (both of its
+    assemblies), row_key elsewhere; rows of a full tile, a partial tile
+    and a single row; against the twin and interleave_codes."""
     rng = np.random.default_rng(b)
     for w in range(1, 65):
         rows = launch_plan(1, w).rows
@@ -287,8 +381,24 @@ def test_key_stage_model_matches_zorder(b):
         np.testing.assert_array_equal(
             K.interleave_codes(torch.from_numpy(codes), w=w, b=b).numpy(),
             want)
-        if 32 % w == 0 or w % 32 == 0:
-            got = _ballot_keys_model(codes, w, b)
+        if w & (w - 1) == 0:
+            for slots in (False, True) if w in (8, 16) else (False,):
+                np.testing.assert_array_equal(
+                    _ballot_keys_model(codes, w, b, rows, slots), want,
+                    err_msg=f"w={w} b={b} slots={slots}")
         else:
-            got = _zorder_word_model(codes, w, b)
-        np.testing.assert_array_equal(got, want, err_msg=f"w={w} b={b}")
+            np.testing.assert_array_equal(
+                _row_keys_model(codes, w, b), want, err_msg=f"w={w} b={b}")
+
+
+@pytest.mark.parametrize("w", (5, 12, 63, 64, 65, 96, 100, 300))
+def test_wide_row_key_model_matches_zorder(w):
+    """row_key's plane-by-plane path, which the generic tile takes past
+    w = 64 (and which gives the same bits below it), every b."""
+    rng = np.random.default_rng(w)
+    for b in range(1, 9):
+        codes = rng.integers(0, 1 << b, (7, w), dtype=np.uint8)
+        want = ref.zorder_ref(torch.from_numpy(codes), w=w, b=b).numpy()
+        np.testing.assert_array_equal(
+            _row_keys_model(codes, w, b, wide=True), want,
+            err_msg=f"w={w} b={b}")

@@ -1,5 +1,5 @@
-"""Compare the summarize kernels (``sax_summarize``, ``fused_build``) across
-checkouts on one card.
+"""Compare the build kernels (``sax_summarize``, ``fused_build``, ``zorder``)
+across checkouts on one card.
 
 For each ``repro_torch`` package given by ``--src`` (a checkout's ``src``
 directory), loaded under a name of its own so that several trees run in
@@ -19,7 +19,11 @@ one process:
   (L, w) = (64, 8) and (300, 12) (a shape of the generic tile); and
   ``sax_summarize`` at 65,536 x 256 with the L2 flushed by reading the
   256 MiB instead ("read flush": the zeroing leaves 50 MB of dirty lines
-  in the L2, whose write-back then shares the kernel's time);
+  in the L2, whose write-back then shares the kernel's time); ``zorder``
+  (random codes made on the card, b = 8) at 65,536 x 16 (one chunk: L2
+  flushed by zeroing, by a read, and warm, as pass 1 finds the codes
+  ``sax_summarize`` just wrote), at 8,388,608 x 16 (the tree's rows) and
+  at 1,048,576 rows of w = 8, 12 and 64;
 * ``bound_us``: each case's least time, its bytes (inputs read once,
   outputs written once) over 3.35 TB/s;
 * ``floor_us``: the same timing of a one-element ``fill_``, the least
@@ -28,11 +32,13 @@ one process:
 Trees alternate A, B, B, A in each of ``--reps`` rounds; each number is
 the median over the rounds, and every round's value is printed too.
 ``--grids 132 264`` also times the first tree with each of those grids in
-place of its plan's own.  ``--sass DIR`` writes each tree's SASS listing of
-the two kernels to ``DIR`` (``cuobjdump -sass`` of its built library) and
-prints, for each kernel, its instruction count and each loop (a backward
-branch): its instructions and their kinds.  Prints one JSON line per run
-and the card's name.
+place of its plans' own.  ``--only zorder fused_build`` times only the cases whose
+names hold one of the words.  ``--sass DIR`` writes each tree's SASS
+listing of the three kernels to ``DIR`` (``cuobjdump -sass`` of its built
+library) and prints, for each kernel, its instruction count, its local
+memory loads and stores, and each loop (a backward branch): its
+instructions and their kinds.  Prints one JSON line per run and the card's
+name.
 
 Run from the root of a checkout:
 
@@ -59,7 +65,8 @@ MODULES = {"sx": "kernels.sax_summarize", "fb": "kernels.fused_build",
            "zo": "kernels.zorder", "ref": "kernels.ref",
            "S": "core.summarization", "keys": "core.keys",
            "loader": "kernels.loader"}
-# (kernel, N, L, w, how the L2 is flushed); b = 8 throughout
+# (kernel, N, L, w, how the L2 is flushed); b = 8 throughout; zorder's
+# input is codes, L = 0
 CASES = (("sax_summarize", 65_536, 256, 16, "zero"),
          ("fused_build", 8_388_608, 256, 16, "zero"),
          ("fused_build", 1_048_576, 256, 16, "zero"),
@@ -67,11 +74,18 @@ CASES = (("sax_summarize", 65_536, 256, 16, "zero"),
          ("fused_build", 1_048_576, 64, 8, "zero"),
          ("sax_summarize", 1_048_576, 300, 12, "zero"),
          ("fused_build", 1_048_576, 300, 12, "zero"),
-         ("sax_summarize", 65_536, 256, 16, "read"))
+         ("sax_summarize", 65_536, 256, 16, "read"),
+         ("zorder", 65_536, 0, 16, "zero"),
+         ("zorder", 65_536, 0, 16, "read"),
+         ("zorder", 65_536, 0, 16, "warm"),
+         ("zorder", 8_388_608, 0, 16, "zero"),
+         ("zorder", 1_048_576, 0, 8, "zero"),
+         ("zorder", 1_048_576, 0, 12, "zero"),
+         ("zorder", 1_048_576, 0, 64, "zero"))
 BITS = 8
-SASS_KINDS = ("LDG", "LDGSTS", "LDS", "STS", "STG", "FADD", "MUFU", "I2F",
-              "F2I", "IMAD", "IADD3", "LOP3", "SHF", "VOTE", "BREV", "BAR",
-              "CALL", "BRA", "ISETP", "FSETP")
+SASS_KINDS = ("LDG", "LDGSTS", "LDS", "STS", "STG", "LDL", "STL", "FADD",
+              "MUFU", "I2F", "F2I", "IMAD", "IADD3", "LOP3", "SHF", "SEL",
+              "PRMT", "VOTE", "BREV", "BAR", "CALL", "BRA", "ISETP", "FSETP")
 
 
 def walks(n: int, L: int, gen: torch.Generator) -> torch.Tensor:
@@ -83,25 +97,30 @@ def walks(n: int, L: int, gen: torch.Generator) -> torch.Tensor:
 
 
 def bound_us(kernel: str, n: int, L: int, w: int, nw: int) -> float:
+    if kernel == "zorder":
+        return n * (w + 8 * nw) / HBM_BYTES_PER_S * 1e6
     out = 5 * w + (8 * nw if kernel == "fused_build" else 0)
     return (n * (4 * L + out) + ((1 << BITS) - 1) * 4) / HBM_BYTES_PER_S * 1e6
 
 
 def calls(t: dict, data: dict) -> dict:
     """(kernel call, kernel, N, L, w, flush) per case name."""
-    sx, fb, S = t["sx"].sax_summarize, t["fb"].fused_build, t["S"]
+    sx, fb, zo, S = (t["sx"].sax_summarize, t["fb"].fused_build,
+                     t["zo"].zorder, t["S"])
     out = {}
     for kernel, n, L, w, how in CASES:
-        x = data[(n, L)]
+        x = data[(n, L) if L else ("codes", n, w)]
         bps = S.breakpoints(BITS, device=x.device)
-        if kernel == "sax_summarize":
+        if kernel == "zorder":
+            fn = lambda c=x, w=w: zo(c, w=w, b=BITS)    # noqa: E731
+        elif kernel == "sax_summarize":
             fn = (lambda x=x, bps=bps, w=w:
                   sx(x, bps, segments=w, bits=BITS))
         else:
             fn = (lambda x=x, bps=bps, w=w:
                   fb(x, bps, segments=w, bits=BITS))
-        name = f"{kernel} {n}x{L} w={w}" + (" read flush" if how == "read"
-                                             else "")
+        name = f"{kernel} {n}x{L or w} w={w}" + {
+            "zero": "", "read": " read flush", "warm": " warm"}[how]
         out[name] = (fn, kernel, n, L, w, how)
     return out
 
@@ -110,7 +129,16 @@ def same_bits(t: dict, data: dict) -> dict:
     """Both kernels against the twin and each other at every shape."""
     sx, fb, zo, ref, S = (t[k] for k in ("sx", "fb", "zo", "ref", "S"))
     ok = {}
-    for (n, L), x in data.items():
+    for key, x in data.items():
+        if key[0] == "codes":             # zorder against its twin
+            _, n, w = key
+            want = torch.cat([ref.zorder_ref(x[s:s + (1 << 20)], w=w, b=BITS)
+                              for s in range(0, n, 1 << 20)])
+            ok[f"zorder {n}x{w}"] = bool(torch.equal(
+                zo.zorder(x, w=w, b=BITS), want))
+            del want
+            continue
+        n, L = key
         for w in sorted({c[3] for c in CASES if c[1:3] == (n, L)}):
             bps = S.breakpoints(BITS, device=x.device)
             paa, codes = sx.sax_summarize(x, bps, segments=w, bits=BITS)
@@ -152,7 +180,7 @@ def sass(t: dict, tag: str, out_dir: Path) -> dict:
                 funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
     keep = {k: v for k, v in funcs.items()
             if re.search(r"sax_summarize|fused_build|SaxSummarize|"
-                         r"FusedBuild|summarize", k)}
+                         r"FusedBuild|summarize|zorder", k)}
     out_dir.mkdir(parents=True, exist_ok=True)
     summary = {}
     with open(out_dir / f"sass_{tag}.txt", "w") as f:
@@ -175,7 +203,9 @@ def sass(t: dict, tag: str, out_dir: Path) -> dict:
                     loops.append({"from": f"{lo:04x}", "to": f"{addr:04x}",
                                   "instructions": len(body),
                                   "kinds": dict(kinds)})
-            summary[name] = {"instructions": len(ins), "loops": loops}
+            local = sum(1 for _, op in ins if re.search(r"\b(LDL|STL)\b", op))
+            summary[name] = {"instructions": len(ins), "local_memory": local,
+                             "loops": loops}
     return summary
 
 
@@ -185,6 +215,8 @@ def main() -> int:
                     help="directories that hold a repro_torch package")
     ap.add_argument("--grids", nargs="*", type=int, default=[],
                     help="grids to time the first tree with")
+    ap.add_argument("--only", nargs="*", default=[],
+                    help="time only the cases whose names hold a word")
     ap.add_argument("--sass", default=None,
                     help="write SASS listings here and print loop counts")
     ap.add_argument("--reps", type=int, default=5)
@@ -198,35 +230,53 @@ def main() -> int:
         for i, (src, t) in enumerate(zip(args.src, trees)):
             print(json.dumps({"src": src, "sass": sass(t, str(i),
                                                        Path(args.sass))}))
+    global CASES
+    if args.only:
+        CASES = tuple(c for c in CASES
+                      if any(o in f"{c[0]} {c[1]}x{c[2] or c[3]} w={c[3]}"
+                             for o in args.only))
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = {(n, L): walks(n, L, gen)
-            for n, L in sorted({c[1:3] for c in CASES})}
+            for n, L in sorted({c[1:3] for c in CASES if c[2]})}
+    for n, w in sorted({(c[1], c[3]) for c in CASES if not c[2]}):
+        data[("codes", n, w)] = torch.randint(
+            0, 1 << BITS, (n, w), generator=gen, device="cuda",
+            dtype=torch.uint8)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    flushes = {"zero": flush, "read": lambda: flush.max()}
+    flushes = {"zero": flush, "read": lambda: flush.max(), "warm": None}
     one = torch.empty(1, device="cuda")
 
-    # a run: a tree, and the grid its plan is given in place of its own
-    runs = [(src, t, None) for src, t in zip(args.src, trees)]
-    runs += [(f"{args.src[0]} grid {g}", trees[0], g) for g in args.grids]
+    # a run: a tree, and the plan fields given in place of its own
+    runs = [(src, t, {}) for src, t in zip(args.src, trees)]
+    runs += [(f"{args.src[0]} grid {g}", trees[0], {"grid": g})
+             for g in args.grids]
 
-    def enter(t, grid):
-        """Give the tree's plan the grid; returns its own plan."""
-        own = getattr(t["sx"], "launch_plan", None)
-        if grid is not None:
-            def plan(n, w):
-                return own(n, w)._replace(grid=grid)
+    def enter(t, fields):
+        """Give the tree's plans the fields; returns its own plans."""
+        own = (getattr(t["sx"], "launch_plan", None),
+               getattr(t["zo"], "launch_plan", None))
+        if "grid" in fields:
+            def plan(n, w, own=own[0]):
+                return own(n, w)._replace(grid=fields["grid"])
             t["sx"].launch_plan = t["fb"].launch_plan = plan
+        if own[1] is not None and "grid" in fields:
+            def zplan(n, w, own=own[1]):
+                p = own(n, w)
+                return p._replace(grid=min(fields["grid"], -(-n // p.rows)))
+            t["zo"].launch_plan = zplan
         return own
 
-    def leave(t, grid, own):
-        if grid is not None:
-            t["sx"].launch_plan = t["fb"].launch_plan = own
+    def leave(t, fields, own):
+        if "grid" in fields:
+            t["sx"].launch_plan = t["fb"].launch_plan = own[0]
+        if own[1] is not None:
+            t["zo"].launch_plan = own[1]
 
     out = []
-    for src, t, grid in runs:
-        own = enter(t, grid)
+    for src, t, fields in runs:
+        own = enter(t, fields)
         bits = same_bits(t, data)
-        leave(t, grid, own)
+        leave(t, fields, own)
         cs = calls(t, data)
         nw = {c[3]: t["keys"].n_key_words(c[3], BITS) for c in CASES}
         out.append({"src": src, "bits": bits, "cases": cs,
@@ -239,12 +289,12 @@ def main() -> int:
     for _ in range(args.reps):
         floor.append(event_us(lambda: one.fill_(0.0)))
         for i in order + order[::-1]:
-            _, t, grid = runs[i]
+            _, t, fields = runs[i]
             o = out[i]
-            own = enter(t, grid)
+            own = enter(t, fields)
             for name, c in o["cases"].items():
                 o["kernel_us"][name].append(event_us(c[0], flushes[c[5]]))
-            leave(t, grid, own)
+            leave(t, fields, own)
     print(torch.cuda.get_device_name(0))
     print(json.dumps({"floor_us": statistics.median(floor), "rounds": floor}))
     for o in out:
