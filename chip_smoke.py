@@ -15,11 +15,25 @@ parity, and a brute-force check.  Then the storage path over the same
 walks: an on-disk segment bulk-loaded by external sort (``sax_summarize``
 + ``zorder`` per chunk, then a merge of the spills), its columns held
 against the tree's, exact k-NN straight off the file (``unpack_mindist``
-per leaf group), through the tiered leaf store, and ``tree.load`` of the
-file.  Then every kernel is timed at the main path's shapes (the cross
+per leaf group), through the tiered leaf store, budgeted searches off the
+file under two ``max_bytes`` budgets, and ``tree.load`` of the file.  Then
+the streaming path: the first 7,864,320 walks as host batches of 65,536
+rows through a btp Coconut-LSM (buffer 1,048,576, ratio 2; every flush
+``fused_build``, every merge ``tree.merge_trees`` on the card), exact
+batches over a snapshot with its buffer, whole and over a window of the
+newest run and the buffer, against brute force, then a flush after which
+every answer keeps its bits; at one eighth of that depth pp, tp (fed each
+batch's ``sax_summarize`` summaries, so its flushes run ``zorder``) and
+btp engines give the same bits, and a concurrent engine answers each
+snapshot a second thread searches as brute force over the rows it could
+see.  Then budgeted search on the tree (``max_leaves`` 0, 16, 256 and
+unlimited; ``exact_search_budgeted``, whose whole-tree bound is
+``mindist`` at Q=1).  Then every kernel is timed at the main path's
+shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
 median rows per launch and at Q=1; ``zorder`` also over the tree's
-8,388,608 rows, and at the chunk with the L2 warm and flushed by a read)
+8,388,608 rows, and at the chunk with the L2 warm and flushed by a read;
+``mindist`` at Q=1 over the tree's 8,388,608 rows)
 beside its bound, its twin and, where one exists, a PyTorch library
 call.  Every phase raises on failure.  The
 last lines are the kernels' JSON record, the card's name and power
@@ -58,6 +72,17 @@ TIMED = 20                  # kernel launches per median
 PLAIN_TIMED = 3             # plain-twin calls per median
 PROFILED_CALLS = 200        # scan_verify calls per operations-per-call profile
 FLUSH_BYTES = 256 << 20     # > the 50 MB L2: a cold cache between launches
+# phase 10: a stream of 7.5 buffers through a btp engine (ratio 2): runs of
+# 4, 2 and 1 buffers and half a buffer still buffered
+STREAM_ROWS = 7_864_320
+STREAM_BATCH = 65_536
+STREAM_CAPACITY = 1 << 20
+STREAM_WINDOW = 1_572_864   # the newest run and the buffer
+MODES_DEPTH = 8             # phase 11 runs at one eighth of phase 10's depth
+BUDGET_LEAVES = (0, 16, 256, None)   # phase 12's max_leaves; None: unlimited
+BUDGETED_QUERIES = 8        # exact_search_budgeted calls, budget 1024
+BUDGETED_ROWS = 1024
+BUDGET_BYTE_LEAVES = (16, 256)   # phase 12's max_bytes, in whole-leaf charges
 
 
 def fail(msg: str) -> None:
@@ -266,18 +291,25 @@ def make_data(torch, series, gen, n, L):
 
 
 def brute_force(torch, tree, queries, k):
-    """Blocked plain-torch exact k-NN over every row: an fp32 matmul
-    selects each block's 64 nearest candidates, which are re-scored with
-    the direct diff-square-sum and merged (stable on ties)."""
+    """Exact k-NN over every row of ``tree`` by :func:`brute_rows`,
+    reported as the tree reports (original row offsets)."""
+    return brute_rows(torch, tree.raw, tree.offsets, queries, k)
+
+
+def brute_rows(torch, raw, ids, queries, k):
+    """Blocked plain-torch exact k-NN over the rows ``raw`` (on the card)
+    reported as ``ids``: an fp32 matmul selects each block's 64 nearest
+    candidates, which are re-scored with the direct diff-square-sum and
+    merged (stable on ties)."""
     q = queries
     qn = (q * q).sum(1, keepdim=True)
     cand_d, cand_i = [], []
-    raw = tree.raw
     step = 1 << 20
-    for s in range(0, tree.n, step):
+    for s in range(0, raw.shape[0], step):
         blk = raw[s:s + step]
         approx = qn - 2.0 * (q @ blk.T) + (blk * blk).sum(1)[None, :]
-        sel = torch.topk(approx, 64, dim=1, largest=False).indices + s
+        sel = torch.topk(approx, min(64, blk.shape[0]), dim=1,
+                         largest=False).indices + s
         rows = raw[sel]                                    # [Q, 64, L]
         cand_d.append(((rows - q[:, None, :]) ** 2).sum(-1))
         cand_i.append(sel)
@@ -285,7 +317,21 @@ def brute_force(torch, tree, queries, k):
     i = torch.cat(cand_i, 1)
     order = torch.sort(d, dim=1, stable=True).indices[:, :k]
     return (torch.gather(d, 1, order).cpu().numpy(),
-            tree.offsets[torch.gather(i, 1, order)].cpu().numpy())
+            ids[torch.gather(i, 1, order)].cpu().numpy())
+
+
+def agrees_with_brute(np, brute, got, what: str) -> int:
+    """``got`` (dists, ids) against a brute force: dists within rtol 1e-5
+    (the brute force sums in torch's order, the kernels in theirs), ids
+    equal but where two rows tie within that tolerance.  Returns the
+    number of tie swaps."""
+    (b_d, b_o), (d, o) = brute, got
+    diff = b_o != o
+    check(not diff.any() or np.allclose(b_d[diff], d[diff], rtol=1e-5),
+          f"{what}: {int(diff.sum())} answer ids differ from brute force")
+    check(np.allclose(b_d, d, rtol=1e-5),
+          f"{what}: dists differ from brute force")
+    return int(diff.sum())
 
 
 def device_profile(torch, fn, reps: int = 1, top: int = 8):
@@ -482,6 +528,10 @@ def segment_phase(torch, np, x, tree, queries, tree_answer) -> dict:
             "UnpackMindist", "tiered hot unpack_mindist kernels")
         out["tiers"] = tiers.stats()
 
+        # -- phase 12, off this file (run here, while it exists) -------------
+        out["launches"]["budget_mmap"] = budget_mmap(
+            torch, np, seg, queries, tree_answer)
+
         # inputs for the unpack_mindist timings: leaf 0's packed codes,
         # read off the file and as a hot-tier block
         li = 0
@@ -506,6 +556,376 @@ def segment_phase(torch, np, x, tree, queries, tree_answer) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: streaming ingest, window modes, budgeted search
+# ---------------------------------------------------------------------------
+
+def stable_bits(np, a, b, what: str) -> None:
+    """Two answers (dists, ids) of the port's kernels: ids equal, dists
+    bitwise."""
+    (d1, o1), (d2, o2) = a, b
+    check(np.array_equal(o1, o2), f"{what}: ids differ")
+    check(np.array_equal(np.ascontiguousarray(d1, np.float32).view(np.uint32),
+                         np.ascontiguousarray(d2, np.float32).view(np.uint32)),
+          f"{what}: dists are not bitwise equal")
+
+
+def hist_delta(h, before):
+    """(count, total ms) observed by a registry histogram since ``before``."""
+    return h.count - before[0], h.sum - before[1]
+
+
+def streaming_phase(torch, np, x, queries) -> dict:
+    """Phase 10: the first STREAM_ROWS walks, as host batches, through a
+    btp engine at the paper's deployment; exact batches over a snapshot
+    with its buffer, whole and windowed, against brute force; then a
+    flush, after which every answer keeps its bits."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core import summarization as S
+    from repro_torch.core.lsm import CoconutLSM
+    from repro_torch.kernels import loader
+    from repro_torch.obs import get_registry
+    from repro_torch.query import build_plan
+    cfg, leaf = INDEX, LEAF_SIZE
+    n, L, dev = STREAM_ROWS, cfg.series_len, x.device
+    launches = {}
+    # a run holds, per row: raw, key words (int64), PAA, code, offset,
+    # timestamp and id.  Resident: phase 3's walks and tree, the stream's
+    # runs; the largest merge adds its concatenation and its sorted copy
+    # (the last flush's merge cascade ends in one merge of every row)
+    run_row = L * 4 + cfg.n_words * 8 + cfg.segments * 5 + 3 * 8
+    reckoned = (N_ROWS * L * 4 + N_ROWS * run_row + n * run_row
+                + 2 * n * run_row)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x_host = x[:n].cpu().numpy()
+    print(f"stream: {n} x {L} walks copied to the host in "
+          f"{time.perf_counter() - t0:.2f} s; reckoned device peak "
+          f"{reckoned / 2**30:.1f} GiB (phase 3's walks and tree, the "
+          f"stream's runs, the last merge's concatenation and output)")
+    reg = get_registry()
+    h_flush = reg.histogram("compact.flush_ms")
+    h_merge = reg.histogram("compact.merge_ms")
+    f0, m0 = (h_flush.count, h_flush.sum), (h_merge.count, h_merge.sum)
+    eng = CoconutLSM(cfg, buffer_capacity=STREAM_CAPACITY, leaf_size=leaf,
+                     size_ratio=2, mode="btp")
+    loader.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n, STREAM_BATCH):
+        eng.insert(x_host[s:s + STREAM_BATCH])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    launches["ingest"] = dict(loader.LAUNCHES)
+    sizes = [r.n for r in eng.runs]
+    buffered = eng.ingest_lag()
+    check(sizes == [STREAM_CAPACITY, 2 * STREAM_CAPACITY,
+                    4 * STREAM_CAPACITY]
+          and buffered == n - 7 * STREAM_CAPACITY,
+          f"stream: runs {sizes} and {buffered} rows buffered")
+    check(eng.level_histogram() == {0: 1, 1: 1, 2: 1} and eng.merges == 4,
+          f"stream: levels {eng.level_histogram()}, {eng.merges} merges")
+    eng.check_invariants()
+    check(launches["ingest"].get("fused_build", 0) == 7,
+          f"stream: flushes launched {launches['ingest']}")
+    fl, fl_ms = hist_delta(h_flush, f0)
+    mg, mg_ms = hist_delta(h_merge, m0)
+    print(f"stream ingest: {n} rows in {n // STREAM_BATCH} batches in "
+          f"{ingest_s:.3f} s ({n / ingest_s:.0f} rows/s); runs {sizes} "
+          f"(levels {eng.level_histogram()}), {buffered} rows buffered; "
+          f"{fl} flushes {fl_ms:.1f} ms ({fl_ms / fl:.2f} ms each, "
+          f"compact.flush_ms), {mg} merges {mg_ms:.1f} ms "
+          f"({mg_ms / mg:.2f} ms each, compact.merge_ms); launches "
+          f"{launches['ingest']}")
+
+    snap = eng.snapshot(include_buffer=True)
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    d, o, info = snap.search_exact_batch(queries, k=K)
+    full_s = time.perf_counter() - t0
+    launches["search"] = dict(loader.LAUNCHES)
+    for name in ("mindist_batch", "batch_euclid", "batch_euclid_gather",
+                 "sax_summarize", "zorder"):
+        check(launches["search"].get(name, 0) > 0,
+              f"stream search launched no {name}: {launches['search']}")
+    check(info["buffer_rows"] == buffered, f"stream: {info['buffer_rows']} "
+          f"buffer rows scanned of {buffered}")
+    ties = agrees_with_brute(np, brute_rows(
+        torch, x[:n], torch.arange(n, device=dev), queries, K), (d, o),
+        "stream search")
+    from_buf = int((o >= n - buffered).sum())
+    print(f"stream search (window=None, Q={N_QUERIES} k={K}): {full_s:.3f} s "
+          f"per batch; equal to brute force over {n} rows ({ties} tie "
+          f"swaps); {from_buf} answers from the buffer; partitions touched "
+          f"{info['partitions_touched']}, leaves scanned "
+          f"{info['leaves_scanned']}; launches {launches['search']}")
+
+    ts_min = snap.clock - STREAM_WINDOW
+    parts = snap._partitions()
+    plan = build_plan(parts, S.paa(queries, cfg.segments).cpu().numpy(),
+                      ts_min=ts_min)
+    check(len(parts) == 4 and plan.n_partitions == 2,
+          f"stream window: {plan.n_partitions} of {len(parts)} partitions")
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    dw, ow, iw = snap.search_exact_batch(queries, k=K, window=STREAM_WINDOW)
+    win_s = time.perf_counter() - t0
+    launches["window"] = dict(loader.LAUNCHES)
+    check(iw["partitions_touched"] + iw["partitions_pruned"] == 1
+          and iw["buffer_rows"] == buffered,
+          f"stream window: {iw['partitions_touched']} runs touched, "
+          f"{iw['partitions_pruned']} pruned, {iw['buffer_rows']} buffered")
+    ties = agrees_with_brute(np, brute_rows(
+        torch, x[ts_min:n], torch.arange(ts_min, n, device=dev), queries, K),
+        (dw, ow), "stream window")
+    print(f"stream search (window={STREAM_WINDOW}): {win_s:.3f} s per "
+          f"batch; 2 of 4 partitions planned (the newest run and the "
+          f"buffer); equal to brute force over rows {ts_min}..{n - 1} "
+          f"({ties} tie swaps)")
+    del snap
+
+    m1 = (h_merge.count, h_merge.sum)
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    eng.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    df, of, _ = eng.search_exact_batch(queries, k=K)
+    after_s = time.perf_counter() - t0
+    launches["flush"] = dict(loader.LAUNCHES)
+    check([r.n for r in eng.runs] == [n], f"stream: after the flush runs "
+          f"{[r.n for r in eng.runs]}")
+    stable_bits(np, (df, of), (d, o), "stream: post-flush search vs the "
+                "snapshot with its buffer")
+    mg, mg_ms = hist_delta(h_merge, m1)
+    print(f"stream flush: the {buffered}-row buffer flushed and merged "
+          f"into one run of {n} rows in {flush_s:.3f} s ({mg} merges, "
+          f"{mg_ms:.1f} ms); search {after_s:.3f} s; every answer, the "
+          f"{from_buf} that lay in the buffer too, has its ids and bits")
+    print(f"stream memory: device peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB (reckoned {reckoned / 2**30:.1f} GiB)")
+    eng.close()
+    return launches
+
+
+def modes_phase(torch, np, x, queries) -> dict:
+    """Phase 11: one eighth of the stream into pp, tp and btp engines
+    (tp given each batch's summaries, so its flushes key with zorder):
+    the same answer bits at window=None; then into a concurrent btp
+    engine while a second thread searches its snapshots, each against
+    brute force over the rows it could see."""
+    import threading
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core.lsm import CoconutLSM
+    from repro_torch.kernels import loader, ops
+    cfg, leaf = INDEX, LEAF_SIZE
+    n = STREAM_ROWS // MODES_DEPTH
+    cap = STREAM_CAPACITY // MODES_DEPTH
+    batch = STREAM_BATCH // MODES_DEPTH
+    dev = x.device
+    x_host = x[:n].cpu().numpy()
+    launches, answers = {}, {}
+    for mode in ("pp", "tp", "btp"):
+        eng = CoconutLSM(cfg, buffer_capacity=cap, leaf_size=leaf, mode=mode)
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for s in range(0, n, batch):
+            if mode == "tp":
+                eng.insert(x_host[s:s + batch],
+                           summaries=ops.sax_summarize(x[s:s + batch], cfg))
+            else:
+                eng.insert(x_host[s:s + batch])
+        eng.flush()
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        answers[mode] = eng.search_exact_batch(queries, k=K)[:2]
+        search_s = time.perf_counter() - t0
+        launches[mode] = dict(loader.LAUNCHES)
+        print(f"modes {mode}: {n} rows in {ingest_s:.3f} s; runs "
+              f"{[r.n for r in eng.runs]} ({eng.merges} merges); search "
+              f"{search_s:.3f} s; launches {launches[mode]}")
+        eng.close()
+    flushes = -(-n // cap)
+    check(launches["tp"].get("zorder", 0) >= flushes
+          and "fused_build" not in launches["tp"]
+          and launches["btp"].get("fused_build", 0) == flushes,
+          f"modes: tp flushes must key with zorder, btp with fused_build: "
+          f"{launches['tp']}, {launches['btp']}")
+    for mode in ("pp", "tp"):
+        stable_bits(np, answers[mode], answers["btp"],
+                    f"modes: {mode} vs btp")
+    ties = agrees_with_brute(np, brute_rows(
+        torch, x[:n], torch.arange(n, device=dev), queries, K),
+        answers["btp"], "modes")
+    print(f"modes: pp, tp and btp give the same ids and dist bits, equal to "
+          f"brute force over {n} rows ({ties} tie swaps)")
+
+    eng = CoconutLSM(cfg, buffer_capacity=cap, leaf_size=leaf, mode="btp",
+                     concurrent=True)
+    seen, errors = [], []
+    done = threading.Event()
+
+    def searcher():
+        try:
+            while not done.is_set() or len(seen) < 3:
+                snap = eng.snapshot()
+                d, o, _ = snap.search_exact_batch(queries, k=K)
+                seen.append((snap.n, d, o))
+        except BaseException as e:       # re-raised on the main thread
+            errors.append(e)
+            done.set()
+
+    loader.LAUNCHES.clear()
+    th = threading.Thread(target=searcher)
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        for s in range(0, n, batch):
+            if errors:
+                break
+            eng.insert(x_host[s:s + batch])
+    finally:
+        done.set()
+        th.join()
+    ingest_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    eng.flush()
+    check(eng.compaction_debt() == 0 and eng.ingest_lag() == 0,
+          f"concurrent: debt {eng.compaction_debt()}, lag {eng.ingest_lag()}")
+    final = eng.search_exact_batch(queries, k=K)[:2]
+    stats = eng.ingest.snapshot()
+    eng.close()
+    launches["concurrent"] = dict(loader.LAUNCHES)
+    stable_bits(np, final, answers["btp"], "concurrent vs synchronous btp")
+    checked = 0
+    for n_vis, d, o in seen:
+        if n_vis == 0:
+            check(np.isinf(d).all(), "concurrent: an empty snapshot answered")
+            continue
+        agrees_with_brute(np, brute_rows(
+            torch, x[:n_vis], torch.arange(n_vis, device=dev), queries, K),
+            (d, o), f"concurrent snapshot of {n_vis} rows")
+        checked += 1
+    check(checked > 0, "concurrent: no snapshot saw a row")
+    print(f"concurrent btp: {n} rows in {ingest_s:.3f} s while a second "
+          f"thread ran {len(seen)} snapshot searches (visible rows "
+          f"{[v for v, _, _ in seen]}), each equal to brute force over its "
+          f"rows; close() with no debt; bg flushes {stats.get('bg_flushes')}, "
+          f"merges {stats.get('bg_merges')}, backpressure waits "
+          f"{stats.get('backpressure_waits', 0)}; launches "
+          f"{launches['concurrent']}")
+    return launches
+
+
+def budget_mmap(torch, np, seg, queries, exact) -> dict:
+    """Phase 12, off the segment file: ``max_bytes`` budgets bound the
+    bytes the leaf scan reads (``IOStats.bytes_read`` above the
+    zero-budget run's, which reads only the uncharged seed probes)."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core.metrics import IOStats
+    from repro_torch.kernels import loader
+    from repro_torch.storage import exact_search_mmap
+    proj = LEAF_SIZE * (INDEX.segments + INDEX.series_len * 4)
+    loader.LAUNCHES.clear()
+    io0 = IOStats()
+    t0 = time.perf_counter()
+    d0, _, st0 = exact_search_mmap(seg, queries, k=K, io=io0,
+                                   budget={"max_bytes": 0})
+    print(f"budget mmap max_bytes=0: {time.perf_counter() - t0:.3f} s; "
+          f"bytes_read {io0.bytes_read} (the seed probes), scan_bytes "
+          f"{st0.scan_bytes}, leaves {st0.leaves_scanned}")
+    check(st0.scan_bytes == 0 and np.isfinite(d0).all(),
+          "budget mmap: a zero budget scanned or lost the seeds")
+    for leaves in BUDGET_BYTE_LEAVES:
+        cap = leaves * proj
+        io = IOStats()
+        t0 = time.perf_counter()
+        d, o, st = exact_search_mmap(seg, queries, k=K, io=io,
+                                     budget={"max_bytes": cap})
+        dt = time.perf_counter() - t0
+        scan_read = io.bytes_read - io0.bytes_read
+        check(st.scan_bytes <= cap and scan_read <= cap,
+              f"budget mmap: max_bytes {cap}, scan_bytes {st.scan_bytes}, "
+              f"leaf-scan bytes_read {scan_read}")
+        check(np.all(exact[0][:, -1] * (1 + 1e-5) + 1e-4
+                     >= d[:, -1] - st.gap), "budget mmap: the gap is unsound")
+        print(f"budget mmap max_bytes={cap} ({leaves} leaves' charge): "
+              f"{dt:.3f} s; leaf-scan bytes_read {scan_read} <= {cap} "
+              f"(bytes_read {io.bytes_read} with the seeds), scan_bytes "
+              f"{st.scan_bytes}, leaves {st.leaves_scanned}, gap max "
+              f"{float(st.gap.max()):.4f}")
+    launches = dict(loader.LAUNCHES)
+    check(launches.get("unpack_mindist", 0) > 0,
+          f"budget mmap launched no unpack_mindist: {launches}")
+    return launches
+
+
+def budget_phase(torch, np, tree, queries, exact, brute) -> dict:
+    """Phase 12 on phase 3's tree: ``max_leaves`` budgets (answers never
+    worse as the budget grows, the gap sound against brute force, the
+    unlimited budget the exact bits with gap 0), and
+    ``exact_search_budgeted`` (``mindist`` at Q = 1 over every row)."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import loader
+    from repro_torch.query import Budget
+    e_d, e_o = exact
+    b_d = brute[0]
+    launches = {"budget": {}}
+    prev = None
+    for m in BUDGET_LEAVES:
+        budget = Budget() if m is None else Budget(max_leaves=m)
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        d, o, st = T.exact_search_batch(tree, queries, k=K, budget=budget)
+        dt = time.perf_counter() - t0
+        for name, v in loader.LAUNCHES.items():
+            launches["budget"][name] = launches["budget"].get(name, 0) + v
+        kth = d[:, -1]
+        check(m is None or st.leaves_scanned <= m,
+              f"budget {m}: {st.leaves_scanned} leaves scanned")
+        check(prev is None or np.all(kth <= prev),
+              f"budget {m}: an answer got worse as the budget grew")
+        # the brute force sums in torch's order: rtol 1e-5 as in phase 7
+        check(np.all(b_d[:, -1] * (1 + 1e-5) + 1e-4 >= kth - st.gap),
+              f"budget {m}: the gap is unsound against brute force")
+        prev = kth
+        print(f"budget max_leaves={m}: {dt:.3f} s per batch; leaves "
+              f"scanned {st.leaves_scanned}, scan_bytes {st.scan_bytes}, "
+              f"gap max {float(st.gap.max()):.4f}, queries certified "
+              f"{int((st.gap == 0).sum())}/{len(kth)}, exhausted "
+              f"{st.budget_exhausted}")
+    stable_bits(np, (d, o), (e_d, e_o), "unlimited budget vs exact")
+    check(np.all(st.gap == 0) and st.exact, "unlimited budget: gap != 0")
+    loader.LAUNCHES.clear()
+    certified = []
+    t0 = time.perf_counter()
+    for qi in range(BUDGETED_QUERIES):
+        bd, bo, cert = T.exact_search_budgeted(tree, queries[qi],
+                                               budget=BUDGETED_ROWS)
+        if cert:
+            certified.append(qi)
+            check(np.float32(bd).view(np.uint32)
+                  == np.float32(e_d[qi, 0]).view(np.uint32)
+                  and (bo == e_o[qi, 0] or bd == e_d[qi, 1]),
+                  f"exact_search_budgeted: query {qi} certified but not "
+                  f"the exact answer")
+            check(np.isclose(bd, b_d[qi, 0], rtol=1e-5),
+                  f"exact_search_budgeted: query {qi} vs brute force")
+    dt = (time.perf_counter() - t0) / BUDGETED_QUERIES
+    single = dict(loader.LAUNCHES)
+    # at Q = 1 the bound kernel is the single-query TPU kernel's function
+    single["mindist"] = single.pop("mindist_batch", 0)
+    check(single["mindist"] == BUDGETED_QUERIES,
+          f"exact_search_budgeted launched {single}")
+    launches["single"] = single
+    print(f"exact_search_budgeted (budget {BUDGETED_ROWS}): {dt:.4f} s per "
+          f"query; certified {certified} of {BUDGETED_QUERIES}, each equal "
+          f"to the exact answer and brute force; launches {single}")
+    return launches
 
 
 def main() -> int:
@@ -714,12 +1134,29 @@ def main() -> int:
     print(f"brute force: ids agree ({int(diff.sum())} tie swaps), dists "
           f"within rtol 1e-5, in {time.perf_counter() - t0:.2f} s")
 
-    # -- 8: the storage path ---------------------------------------------------
+    # -- 8: the storage path (and phase 12's budgets off the file) -------------
     t0 = time.perf_counter()
     seg_out = segment_phase(torch, np, x, tree, queries, (e_d, e_o))
-    del x
     torch.cuda.empty_cache()
     print(f"segment phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 10: streaming ingest at full width (btp) --------------------------------
+    t0 = time.perf_counter()
+    stream_l = streaming_phase(torch, np, x, queries)
+    torch.cuda.empty_cache()
+    print(f"streaming phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 11: the three modes and the concurrent engine at 1/8 depth --------------
+    t0 = time.perf_counter()
+    modes_l = modes_phase(torch, np, x, queries)
+    del x
+    torch.cuda.empty_cache()
+    print(f"modes phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 12: budgeted search on the tree -----------------------------------------
+    t0 = time.perf_counter()
+    budget_l = budget_phase(torch, np, tree, queries, (e_d, e_o), (b_d, b_o))
+    print(f"budget phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 9: each kernel at the main path's shapes ----------------------------------
     timer = Timer(torch)
@@ -851,6 +1288,9 @@ def main() -> int:
     for name, got, want in (
             ("mindist_batch", md, ref.mindist_batch_ref(
                 q_paas, codes_leaf, lower, upper, scale)),
+            ("mindist", ops.mindist(q_paas[0], tree.codes, cfg),
+             ref.mindist_batch_ref(q_paas[:1], tree.codes, lower, upper,
+                                   scale)[0]),
             ("batch_euclid", ops.batch_euclid_multi(q, verify_rows),
              ref.batch_euclid_ref(q, verify_rows)),
             ("batch_euclid_median", ops.batch_euclid_multi(q, median_rows_t),
@@ -891,6 +1331,16 @@ def main() -> int:
                                                 upper, scale),
             library=None,
             bound=md_bound(nq, nl, w)),
+        "mindist": dict(
+            source="src/repro_torch/kernels/csrc/mindist_batch.cu",
+            replaces="src/repro/kernels/mindist_scan.py:65",
+            shape=f"Q=1 x N={tree.n} rows (ops.mindist: "
+                  f"exact_search_budgeted's whole-tree bound), w={w}",
+            fn=lambda: ops.mindist(q_paas[0], tree.codes, cfg),
+            plain=lambda: ref.mindist_batch_ref(q_paas[:1], tree.codes,
+                                                lower, upper, scale)[0],
+            library=None,
+            bound=md_bound(1, tree.n, w)),
         "batch_euclid": dict(
             source="src/repro_torch/kernels/csrc/batch_euclid.cu",
             replaces="src/repro/kernels/batch_euclid.py:45",
@@ -1026,7 +1476,8 @@ def main() -> int:
     }
     launches = {}
     for phase in (build_launches, eager_launches, fused_launches,
-                  *seg_out["launches"].values()):
+                  *seg_out["launches"].values(), *stream_l.values(),
+                  *modes_l.values(), *budget_l.values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
     launches["unpack_mindist_hot"] = \
@@ -1067,17 +1518,16 @@ def main() -> int:
     print(f"kernel zorder [N={nc} x w={w}]: L2 warm {zo_warm:.4f} ms, L2 "
           f"flushed by a read {zo_read:.4f} ms")
 
-    # ops.mindist is the Q = 1 case of mindist_batch (the single-query TPU
-    # kernel's function); it is not on the main path, so it has no record
+    # ops.mindist over one leaf, the single-query kernel's earlier row
     ms1 = timer.ms(lambda: ops.mindist(q_paas[0], codes_leaf, cfg))
     plain1 = timer.ms(lambda: ref.mindist_batch_ref(
         q_paas[:1], codes_leaf, lower, upper, scale), reps=PLAIN_TIMED)
     b1, by1 = md_bound(1, nl, w)
-    print(f"kernel mindist_batch at Q=1 (ops.mindist) [N={nl} rows, L2 "
+    print(f"kernel mindist at Q=1 (ops.mindist) [N={nl} rows, L2 "
           f"cold]: {ms1:.4f} ms (plain {plain1:.4f} ms, bound {b1:.4f} ms "
           f"by {by1})")
 
-    # -- 10: the record and the result -----------------------------------------------
+    # -- 13: the record and the result -----------------------------------------------
     print(json.dumps({"kernels": record}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,11 +39,9 @@ from . import summarization as S
 from .metrics import IOStats
 
 __all__ = ["CoconutTree", "build", "approx_search", "exact_search",
-           "approx_search_batch", "exact_search_batch", "merge_trees",
-           "SearchStats", "from_numpy", "to_numpy", "save", "load"]
-
-_LATER = ("budgeted and approximate search come with the port of "
-          "query/approx.py (ROADMAP queue A item 3)")
+           "approx_search_batch", "exact_search_batch",
+           "exact_search_budgeted", "merge_trees", "SearchStats",
+           "from_numpy", "to_numpy", "save", "load"]
 
 
 @dataclasses.dataclass
@@ -294,7 +292,8 @@ def exact_search(tree: CoconutTree, query, *,
     returned as an answer.
     ``mindist_fn``: injectable bound with the BATCHED signature
     ``(q_paas [Q, w], codes [N, w]) -> [Q, N]``.
-    ``budget`` / ``mode="approx"``: not in this slice; they raise.
+    ``budget`` / ``mode``: the recall/latency dial — see
+    :func:`exact_search_batch`.
     """
     ext = None if bsf is None else np.asarray([bsf], np.float32)
     d, off, stats = exact_search_batch(
@@ -302,6 +301,51 @@ def exact_search(tree: CoconutTree, query, *,
         chunk=chunk, io=io, mindist_fn=mindist_fn, ts_min=ts_min, bsf=ext,
         budget=budget, mode=mode)
     return d[0], off[0], stats
+
+
+def _smallest_stable(md: torch.Tensor, budget: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``budget`` smallest bounds and their rows, ascending, ties to
+    the lowest row (a stable sort; ``torch.topk`` on CUDA promises no
+    order among ties)."""
+    vals, rows = torch.sort(md, stable=True)
+    return vals[:budget], rows[:budget]
+
+
+def exact_search_budgeted(tree: CoconutTree, query, *, budget: int = 1024,
+                          radius_leaves: int = 1):
+    """Exact search with a fixed verification budget (fixed shapes: the
+    serving path's form).
+
+    Verifies the ``budget`` rows of smallest mindist — the whole tree's
+    bound is one ``mindist`` launch at Q = 1 — taking ties in the bound
+    by lowest row (a stable sort, as ``jax.lax.top_k`` does in the
+    reference).  Returns (best_d, best_offset, certified) where
+    ``certified`` is True iff the budget-th smallest mindist already
+    reaches the best distance found, i.e. the answer is provably exact.
+    """
+    cfg = tree.cfg
+    if not 1 <= budget <= tree.n:
+        raise ValueError(f"budget must be in [1, {tree.n}], got {budget}")
+    q = _queries_on(tree, query)[:1]
+    d0, idx = _approx_candidates_batch(tree, q, radius_leaves=radius_leaves)
+    d0, idx = d0[0], idx[0]
+    seed = d0.min()
+    md = ops.mindist(S.paa(q, cfg.segments)[0], tree.codes, cfg)      # [N]
+    cand_md, order = _smallest_stable(md, budget)
+    base, rows = tree.series_source(order)
+    d = ops.batch_euclid_multi(q, base, idx=rows[None, :])[0]
+    d = torch.where(cand_md < torch.minimum(seed, d.min()), d,
+                    torch.full_like(d, float("inf")))
+    best_i = torch.argmin(d)
+    best_d = torch.minimum(d[best_i], seed)
+    from_seed = seed <= d[best_i]
+    rep = _report_column(tree)
+    best_off = torch.where(from_seed, rep[idx[torch.argmin(d0)]],
+                           rep[order[best_i]])
+    certified = cand_md[budget - 1] >= best_d
+    return (np.float32(best_d.item()), np.int64(best_off.item()),
+            bool(certified.item()))
 
 
 def exact_search_batch(tree: CoconutTree, queries, *,
@@ -327,14 +371,23 @@ def exact_search_batch(tree: CoconutTree, queries, *,
     ``mindist_fn``: injectable lower-bound kernel,
     ``(q_paas [Q, w], codes [B, w]) -> [Q, B]`` (defaults to
     :func:`repro_torch.kernels.ops.mindist_batch`).
+    ``budget`` / ``mode="approx"``: the recall/latency dial — drain the
+    best-first leaf frontier under a :class:`repro_torch.query.Budget` (an
+    int is ``max_leaves`` shorthand) and report the certified lower-bound
+    gap in ``stats.gap``; passing ``budget`` implies approx mode, and
+    ``mode="approx"`` with no budget is bit-identical to exact with
+    ``gap == 0``.
     Returns (dists ``[Q, k]``, offsets ``[Q, k]``, batch stats); with k=1
     row qi matches ``exact_search(tree, queries[qi])``.
     """
-    from ..query import Partition, exact_knn
+    from ..query import Partition, approx_knn, exact_knn
     if mode not in ("exact", "approx"):
         raise ValueError(f"mode must be 'exact' or 'approx', got {mode!r}")
     if budget is not None or mode == "approx":
-        raise NotImplementedError(_LATER)
+        return approx_knn([Partition.from_tree(tree)], queries, tree.cfg,
+                          k=k, budget=budget, ts_min=ts_min, bsf=bsf,
+                          radius_leaves=radius_leaves, chunk=chunk, io=io,
+                          mindist_fn=mindist_fn)
     return exact_knn([Partition.from_tree(tree)], queries, tree.cfg,
                      k=k, ts_min=ts_min, bsf=bsf,
                      radius_leaves=radius_leaves, chunk=chunk, io=io,

@@ -1,2 +1,3 @@
 """Data-series generation (paper Sec. 6 "Datasets")."""
-from .series import query_workload, random_walk  # noqa: F401
+from .series import (query_workload, random_walk, series_batches,  # noqa: F401
+                     sliding_windows, synthetic_signal)

@@ -9,11 +9,16 @@ numpy arrays instead.
 """
 from __future__ import annotations
 
+import math
+from typing import Iterator
+
+import numpy as np
 import torch
 
 from ..core.summarization import znormalize
 
-__all__ = ["random_walk", "query_workload"]
+__all__ = ["random_walk", "sliding_windows", "synthetic_signal",
+           "series_batches", "query_workload"]
 
 
 def random_walk(gen: torch.Generator, n: int, length: int = 256,
@@ -22,6 +27,40 @@ def random_walk(gen: torch.Generator, n: int, length: int = 256,
     x = torch.randn((n, length), generator=gen, device=gen.device)
     x = x.cumsum_(dim=-1)
     return znormalize(x) if znorm else x
+
+
+def synthetic_signal(gen: torch.Generator, total_len: int,
+                     n_modes: int = 24) -> torch.Tensor:
+    """Seismic-like long signal: superposed decaying oscillations + noise."""
+    dev = gen.device
+    t = torch.arange(total_len, dtype=torch.float32, device=dev)
+    freqs = 1e-4 + (5e-2 - 1e-4) * torch.rand(n_modes, generator=gen,
+                                              device=dev)
+    phases = 2 * math.pi * torch.rand(n_modes, generator=gen, device=dev)
+    amps = torch.empty(n_modes, device=dev).exponential_(generator=gen)
+    sig = torch.zeros(total_len, device=dev)
+    for i in range(n_modes):          # modes added in order: same bits
+        sig = sig + amps[i] * torch.sin(freqs[i] * t + phases[i])
+    return sig + 0.3 * torch.randn(total_len, generator=gen, device=dev)
+
+
+def sliding_windows(signal: torch.Tensor, length: int = 256, step: int = 4,
+                    znorm: bool = True) -> torch.Tensor:
+    """Extract overlapping subsequences (paper: step 4 for seismic, 1 astro)."""
+    signal = torch.as_tensor(signal)
+    n = (signal.shape[0] - length) // step + 1
+    x = signal.unfold(0, length, step)[:n]
+    return znormalize(x) if znorm else x.contiguous()
+
+
+def series_batches(gen: torch.Generator, total: int, batch: int,
+                   length: int = 256) -> Iterator[np.ndarray]:
+    """Streaming batches (host numpy) for LSM ingestion experiments."""
+    done = 0
+    while done < total:
+        n = min(batch, total - done)
+        yield random_walk(gen, n, length).cpu().numpy()
+        done += n
 
 
 def query_workload(gen: torch.Generator, dataset: torch.Tensor,

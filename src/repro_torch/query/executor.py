@@ -1,7 +1,11 @@
 """Plan execution: seed -> leaf-masked lower-bound scan -> verify.
 
 Sorted partitions are scanned leaf-granularly (surviving leaves only,
-cheapest fence bound first — skip-sequential SIMS).  The host structure is
+cheapest fence bound first — skip-sequential SIMS); unsorted frozen
+buffers are copied to the partition's device and brute-force verified
+with the same Euclidean kernel (:func:`buffer_topk`), so answer
+*distances* are bit-identical however the rows are partitioned — the
+invariant the streaming engine is built on.  The host structure is
 the reference's: per leaf group one device-to-host copy of the bound, a
 host-side live mask, one verification launch over the rows any query
 kept, and per-query :class:`KnnPool` updates.  A segment partition reads
@@ -23,8 +27,9 @@ bytes off disk, so segments keep the eager chain, as in the reference.
 Stage timings (``SearchStats.timings``, milliseconds): ``plan``, ``seed``
 (probe, distances and pool updates), ``bound`` (code gather, bound launch
 and its copy to the host), ``verify`` (row gather, ED or fused launch and
-the copy back), ``merge`` (host pool updates after verification) and
-``scan`` (everything after planning).
+the copy back), ``merge`` (host pool updates after verification),
+``buffer`` (the brute-force scan of unsorted buffers: copy, ED launch,
+selection and pool update) and ``scan`` (everything after planning).
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from .merger import KnnPool, SearchStats
 from .partition import Partition
 from .planner import ScanEntry, ScanPlan, build_plan
 
-__all__ = ["execute", "exact_knn", "SCAN_MODES"]
+__all__ = ["execute", "exact_knn", "buffer_topk", "SCAN_MODES"]
 
 SCAN_MODES = (None, "kernel")
 
@@ -63,12 +68,58 @@ def _ms_since(t0: float) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def buffer_topk(queries_t: torch.Tensor, rows: np.ndarray, offs: np.ndarray,
+                k: int, io=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Brute-force per-query ``[Q, k]`` pools over unsorted host rows —
+    THE buffer-scan contract (stable sort, (inf, -1) padding) shared by
+    the exact executor and the budgeted drain.  The rows are copied to
+    the queries' device and go through the cross form of the verification
+    kernel, whose lane order gives a (query, row) pair the same bits on
+    every path, so the distances always equal a post-flush search of the
+    same rows.  Ties keep the lower buffer position (a stable sort on the
+    device)."""
+    nq = queries_t.shape[0]
+    best_d = np.full((nq, k), np.inf, np.float32)
+    best_off = np.full((nq, k), -1, np.int64)
+    if len(rows) == 0:
+        return best_d, best_off
+    if io is not None:
+        io.seq_read(len(rows))
+    rows_t = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(
+        queries_t.device)
+    d = ops.batch_euclid_multi(queries_t, rows_t)                # [Q, M]
+    take = min(k, d.shape[1])
+    vals, sel = torch.sort(d, dim=1, stable=True)
+    best_d[:, :take] = _host(vals[:, :take])
+    best_off[:, :take] = np.asarray(offs, np.int64)[_host(sel[:, :take])]
+    return best_d, best_off
+
+
+def _scan_buffer(entry: ScanEntry, queries_t: torch.Tensor, k: int,
+                 pool: KnnPool, stats: SearchStats, io) -> None:
+    part = entry.partition
+    t0 = time.perf_counter()
+    rows = part.buffer_raw()
+    offs = part.report_ids()
+    if entry.ts_min is not None:
+        keep = np.nonzero(part.timestamps() >= entry.ts_min)[0]
+        rows, offs = rows[keep], offs[keep]
+    if len(rows):
+        new_d, new_off = buffer_topk(queries_t, rows, offs, k, io=io)
+        pool.update_batch(new_d, new_off)
+        stats.buffer_rows += len(rows)
+        stats.candidates_per_query += len(rows)
+    stats.add_timing("buffer", _ms_since(t0))
+
+
 def _seed_sorted(entry: ScanEntry, queries_t: torch.Tensor, pool: KnnPool,
                  *, radius_leaves: int, io
-                 ) -> Tuple[Optional[np.ndarray], np.ndarray]:
+                 ) -> Tuple[Optional[np.ndarray], np.ndarray, np.ndarray]:
     """Seed the pool from the leaves around each query's z-order slot
-    (the Algorithm-4 probe).  Returns ``(alive, offs_all)`` for the scan
-    that follows."""
+    (the Algorithm-4 probe).  Returns ``(alive, offs_all, idx0)`` for the
+    scan that follows (``idx0``: the probed rows ``[Q, span]``, host).
+    Shared by the exact path and the budgeted drain, so seed distance
+    bits are identical by construction."""
     part = entry.partition
     nq = queries_t.shape[0]
     alive = None
@@ -87,7 +138,7 @@ def _seed_sorted(entry: ScanEntry, queries_t: torch.Tensor, pool: KnnPool,
         offs0 = offs_all[idx0]
     for qi in range(nq):
         pool.update(qi, d0[qi], offs0[qi])
-    return alive, offs_all
+    return alive, offs_all, idx0
 
 
 def _leaves_per_group(chunk: int, nq: int, leaf: int) -> int:
@@ -183,8 +234,8 @@ def _scan_sorted(entry: ScanEntry, queries_t, q_paas_t, k: int,
 
     t0 = time.perf_counter()
     with _span("seed", radius_leaves=radius_leaves):
-        alive, offs_all = _seed_sorted(entry, queries_t, pool,
-                                       radius_leaves=radius_leaves, io=io)
+        alive, offs_all, _ = _seed_sorted(entry, queries_t, pool,
+                                          radius_leaves=radius_leaves, io=io)
     stats.add_timing("seed", _ms_since(t0))
 
     # -- leaf-granular pruning against the fence bounds --------------------
@@ -323,6 +374,12 @@ def execute(plan: ScanPlan, queries, *, k: int = 1,
             on_device[dev] = (torch.as_tensor(queries_np, device=dev),
                               torch.as_tensor(plan.q_paas, device=dev))
         queries_t, q_paas_t = on_device[dev]
+        if not part.is_sorted:
+            with _span("scan", part=label, rows=part.n) as sp:
+                before_rows = stats.buffer_rows
+                _scan_buffer(entry, queries_t, k, pool, stats, io)
+                sp.set(buffer_rows=stats.buffer_rows - before_rows)
+            continue
         part_mindist = (_default_mindist(part.cfg) if mindist_fn is None
                         else mindist_fn)
         total_rows += part.n

@@ -1,8 +1,8 @@
 """The uniform partition view every search source exposes to the planner.
 
 A :class:`Partition` is one searchable unit, normalized to what the
-pipeline needs: ``(keys, codes, leaf_fences, ts_range, backend)``.  This
-slice of the port carries two kinds:
+pipeline needs: ``(keys, codes, leaf_fences, ts_range, backend)``.  There
+are three kinds:
 
 * ``tree`` (backend ``"device"``) — a sorted Coconut run held on a device
   (:class:`repro_torch.core.tree.CoconutTree`); row accessors gather the
@@ -11,7 +11,11 @@ slice of the port carries two kinds:
   (:class:`repro_torch.storage.segment.Segment`): rows are read on the
   host from the mmap, charged to ``io`` as real ``bytes_read``, and copied
   to the partition's device, where its kernels run (the card unless
-  ``device="cpu"``).
+  ``device="cpu"``);
+* ``buffer`` (backend ``"host"``) — an unsorted frozen insert buffer
+  (:class:`repro_torch.ingest.snapshot.FrozenBuffer`): its rows stay on
+  the host, as the reference's do, and the executor copies them to the
+  partition's device per scan and brute-forces them.
 
 Sorted partitions answer *leaf-granular* questions: the leaf-first z-order
 keys (fence pointers) from which the planner derives per-leaf mindist
@@ -63,15 +67,15 @@ def _on(a, dev: torch.device) -> torch.Tensor:
 @dataclasses.dataclass
 class Partition:
     """One searchable unit behind the planner/executor pipeline."""
-    kind: str                 # "tree" | "segment"
-    backend: str              # "device" | "mmap"
+    kind: str                 # "tree" | "segment" | "buffer"
+    backend: str              # "device" | "mmap" | "host"
     cfg: S.SummaryConfig
     n: int
     leaf_size: int
     source: object
     ts_range: Optional[Tuple[int, int]] = None   # (t_min, t_max) or None
     tiers: Optional[object] = None               # TieredLeafStore or None
-    scan_device: Optional[torch.device] = None   # segment: where kernels run
+    scan_device: Optional[torch.device] = None   # segment/buffer: kernels' device
 
     # ------------------------------------------------------------ constructors
     @classmethod
@@ -81,6 +85,12 @@ class Partition:
         return cls(kind="tree", backend="device", cfg=tree.cfg,
                    n=tree.n, leaf_size=tree.leaf_size, source=tree,
                    ts_range=ts_range)
+
+    @classmethod
+    def from_run(cls, run) -> "Partition":
+        """Wrap one LSM :class:`~repro_torch.core.lsm.Run` (tree + time
+        range)."""
+        return cls.from_tree(run.tree, ts_range=(run.t_min, run.t_max))
 
     @classmethod
     def from_segment(cls, seg, *,
@@ -101,7 +111,23 @@ class Partition:
                    ts_range=ts_range, tiers=tiers,
                    scan_device=_device_for(None, device))
 
+    @classmethod
+    def from_buffer(cls, buf, cfg: S.SummaryConfig, *,
+                    ts_range: Optional[Tuple[int, int]] = None,
+                    device=None) -> "Partition":
+        """Wrap a frozen (unsorted) insert buffer — brute-force scanned on
+        ``device`` (the card unless ``device="cpu"``; without CUDA and no
+        explicit CPU request this raises)."""
+        from ..core.tree import _device_for
+        return cls(kind="buffer", backend="host", cfg=cfg,
+                   n=buf.n, leaf_size=max(1, buf.n), source=buf,
+                   ts_range=ts_range, scan_device=_device_for(None, device))
+
     # -------------------------------------------------------------- properties
+    @property
+    def is_sorted(self) -> bool:
+        return self.kind != "buffer"
+
     @property
     def n_leaves(self) -> int:
         return -(-self.n // self.leaf_size)
@@ -329,6 +355,8 @@ class Partition:
         """Column reported as the 'offset' of an answer: the global row
         id when the partition carries ids, else the position in the
         original raw file (a segment's columns stay memmapped)."""
+        if self.kind == "buffer":
+            return np.asarray(self.source.ids)
         if self.kind == "segment":
             src = self.source
             return np.asarray(src.ids if src.ids is not None
@@ -337,6 +365,8 @@ class Partition:
                                  else "offsets").astype(np.int64, copy=False)
 
     def timestamps(self) -> Optional[np.ndarray]:
+        if self.kind == "buffer":
+            return np.asarray(self.source.ts)
         if self.source.timestamps is None:
             return None
         if self.kind == "segment":
@@ -352,3 +382,7 @@ class Partition:
         if name not in cache:
             cache[name] = getattr(src, name).cpu().numpy()
         return cache[name]
+
+    def buffer_raw(self) -> np.ndarray:
+        """A buffer partition's rows, on the host in insertion order."""
+        return np.asarray(self.source.raw)

@@ -120,7 +120,7 @@ class ScanEntry:
     partition: Partition
     ts_min: Optional[int]          # row-level cut, None when not needed
     part_bound: np.ndarray         # [Q] whole-partition fence mindist
-    leaf_bounds: np.ndarray        # [Q, n_leaves]
+    leaf_bounds: Optional[np.ndarray]   # [Q, n_leaves] (sorted parts only)
 
 
 @dataclasses.dataclass
@@ -141,12 +141,15 @@ def build_plan(partitions: Sequence[Partition], q_paas: np.ndarray, *,
                io=None) -> ScanPlan:
     """Plan the scan: filter by window, bound by fences, order by cost.
 
-    Sorted partitions go cheapest fence bound first; ties keep the
-    caller's order.  Empty partitions are dropped.
+    Unsorted buffer partitions come first (they are the newest rows and
+    have no fences to bound them), then sorted partitions cheapest fence
+    bound first; ties keep the caller's order (newest first for LSM
+    runs).  Empty partitions are dropped.
     """
     q_paas = np.atleast_2d(np.asarray(q_paas, np.float32))
     nq = q_paas.shape[0]
     with _span("plan", queries=nq) as sp:
+        buffers: List[ScanEntry] = []
         sorted_entries: List[ScanEntry] = []
         dropped = 0
         for part in partitions:
@@ -160,6 +163,10 @@ def build_plan(partitions: Sequence[Partition], q_paas: np.ndarray, *,
                     continue           # wholly outside the window
                 if t_lo >= ts_min:
                     eff_ts = None      # wholly inside: no row filter
+            if not part.is_sorted:
+                buffers.append(ScanEntry(part, eff_ts,
+                                         np.zeros(nq, np.float32), None))
+                continue
             env_lo, env_hi, part_env = _partition_envelopes(part, io=io)
             leaf_bounds = envelope_mindist_sq(q_paas, env_lo, env_hi,
                                               part.cfg)
@@ -170,6 +177,7 @@ def build_plan(partitions: Sequence[Partition], q_paas: np.ndarray, *,
                                             leaf_bounds))
         order = np.argsort([e.part_bound.mean() for e in sorted_entries],
                            kind="stable")
-        entries = [sorted_entries[i] for i in order]
-        sp.set(partitions=len(entries), window_dropped=dropped)
+        entries = buffers + [sorted_entries[i] for i in order]
+        sp.set(partitions=len(entries), buffers=len(buffers),
+               window_dropped=dropped)
     return ScanPlan(entries=entries, q_paas=q_paas, nq=nq)

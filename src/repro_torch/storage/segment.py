@@ -686,22 +686,26 @@ def exact_search_mmap(seg: Segment, queries, *,
     ``device="cpu"``); a v3 file's code rows reach ``unpack_mindist`` in
     their packed form.
 
-    ``budget`` / ``mode="approx"`` come with the port of the reference's
-    ``query/approx.py`` and raise :class:`NotImplementedError` until then.
+    ``budget`` / ``mode="approx"``: budgeted best-first drain with the
+    certified gap report (see :mod:`repro_torch.query.approx`) — leaves
+    the budget leaves unvisited are never read off disk, so ``max_bytes``
+    bounds the real ``io.bytes_read`` of the leaf scan.
 
     Returns ``(dists [Q, k], offsets [Q, k], SearchStats)`` — answers
     bit-identical to :func:`repro_torch.core.tree.exact_search_batch` on
     the same data.
     """
-    from ..core.tree import _LATER
-    from ..query import Partition, exact_knn
+    from ..query import Partition, approx_knn, exact_knn
     if seg.raw is None:
         raise SegmentFormatError(
             f"{seg.path}: exact search needs the raw block on disk")
     if mode not in ("exact", "approx"):
         raise ValueError(f"mode must be 'exact' or 'approx', got {mode!r}")
+    part = Partition.from_segment(seg, device=device)
     if budget is not None or mode == "approx":
-        raise NotImplementedError(_LATER)
-    return exact_knn([Partition.from_segment(seg, device=device)], queries,
-                     seg.cfg, k=k, radius_leaves=radius_leaves, chunk=chunk,
-                     io=io, mindist_fn=mindist_fn)
+        return approx_knn([part], queries, seg.cfg, k=k, budget=budget,
+                          radius_leaves=radius_leaves, chunk=chunk, io=io,
+                          mindist_fn=mindist_fn)
+    return exact_knn([part], queries, seg.cfg, k=k,
+                     radius_leaves=radius_leaves, chunk=chunk, io=io,
+                     mindist_fn=mindist_fn)

@@ -32,7 +32,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.query", "repro_torch.storage",
            "repro_torch.storage.segment", "repro_torch.storage.tiers",
            "repro_torch.storage.external_sort", "repro_torch.obs",
-           "repro_torch.data", "repro_torch.configs"]
+           "repro_torch.data", "repro_torch.configs",
+           "repro_torch.query.approx", "repro_torch.core.lsm",
+           "repro_torch.core.windows", "repro_torch.ingest",
+           "repro_torch.ingest.snapshot", "repro_torch.ingest.compactor"]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -87,6 +90,34 @@ def test_numpy_build_defaults_to_cuda():
         T.from_numpy(cols, series_len=64, segments=8, bits=4, leaf_size=4)
     assert T.build(x, SMOKE_INDEX, leaf_size=4,
                    device="cpu").device.type == "cpu"
+
+
+def test_streaming_and_budgeted_entry_points_default_to_cuda():
+    """The LSM, the window engines and a budgeted search over numpy input
+    run on the card by default; without one they raise."""
+    from repro_torch.core.lsm import CoconutLSM
+    from repro_torch.core.windows import window_engine
+    from repro_torch.ingest import FrozenBuffer
+    from repro_torch.query import Partition, approx_knn
+    x = np.zeros((8, SMOKE_INDEX.series_len), np.float32)
+    buf = FrozenBuffer(raw=x, ts=np.arange(8), ids=np.arange(8))
+    if torch.cuda.is_available():
+        assert CoconutLSM(SMOKE_INDEX).device.type == "cuda"
+        assert window_engine("tp", SMOKE_INDEX).device.type == "cuda"
+        assert Partition.from_buffer(buf, SMOKE_INDEX).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CoconutLSM(SMOKE_INDEX)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        window_engine("btp", SMOKE_INDEX)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        approx_knn([Partition.from_buffer(buf, SMOKE_INDEX)], x[:2],
+                   SMOKE_INDEX, budget=0)
+    assert CoconutLSM(SMOKE_INDEX, device="cpu").device.type == "cpu"
+    d, _, st = approx_knn(
+        [Partition.from_buffer(buf, SMOKE_INDEX, device="cpu")], x[:2],
+        SMOKE_INDEX, budget=0)
+    assert st.buffer_rows == 8 and d.shape == (2, 1)
 
 
 def test_device_without_kernel_raises():

@@ -358,10 +358,13 @@ def test_segment_entry_points_default_to_cuda(segs):
                                                  np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         segs["port"].to_tree()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="CUDA"):
         exact_search_mmap(segs["port"], np.zeros((1, CFG.series_len),
-                                                 np.float32),
-                          mode="approx", device="cpu")
+                                                 np.float32), budget=2)
+    d, o, st = exact_search_mmap(segs["port"],
+                                 np.zeros((1, CFG.series_len), np.float32),
+                                 mode="approx", device="cpu")
+    assert np.all(st.gap == 0) and d.shape == o.shape == (1, 1)
 
 
 def test_writer_rejects_wrong_rows(tmp_path):

@@ -249,12 +249,19 @@ def test_scan_mode_is_checked(data, trees):
 
 
 def test_budget_and_approx_mode_wait_for_their_slice(data, trees):
+    """``budget=`` and ``mode="approx"`` route to the budgeted drain
+    (``query/approx.py``): a budget caps the leaves scanned, approx mode
+    with no budget is the exact answer with a zero gap, and an unknown
+    mode still raises."""
     _, q, _ = data
     _, pt = trees[True]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.exact_search_batch(pt, q[:2], budget=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.exact_search(pt, q[0], mode="approx")
+    d, o, st = T.exact_search_batch(pt, q[:2], budget=3)
+    assert st.leaves_scanned <= 3 and st.gap.shape == (2,)
+    d1, o1, st1 = T.exact_search(pt, q[0], mode="approx")
+    de, oe, _ = T.exact_search(pt, q[0])
+    np.testing.assert_array_equal(_bits(d1), _bits(de))
+    np.testing.assert_array_equal(o1, oe)
+    assert np.all(st1.gap == 0)
     with pytest.raises(ValueError):
         T.exact_search_batch(pt, q[:2], mode="bogus")
 
