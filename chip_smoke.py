@@ -26,9 +26,22 @@ every answer keeps its bits; at one eighth of that depth pp, tp (fed each
 batch's ``sax_summarize`` summaries, so its flushes run ``zorder``) and
 btp engines give the same bits, and a concurrent engine answers each
 snapshot a second thread searches as brute force over the rows it could
-see.  Then budgeted search on the tree (``max_leaves`` 0, 16, 256 and
+see.  Then the durable engine: a child process (``chip_smoke.py
+--durable-child DIR``, its own CUDA context) makes the same walks from
+the same seed, streams the 7,864,320 rows into a btp engine over a
+segment store under ``build/durable_phase/`` with the write-ahead log
+fsynced on every insert, and SIGKILLs itself after its last
+acknowledged insert; ``CoconutLSM.open`` gives back every row and the
+streaming phase's answers bit for bit (whole and windowed, and against
+brute force), again through a tiered leaf store over the committed
+segments (``unpack_mindist``; a repeated probe from the result cache,
+never stale after an insert and a checkpoint), then a second open, and
+a concurrent engine that closes without a flush reopens with every row.
+Then budgeted search on the tree (``max_leaves`` 0, 16, 256 and
 unlimited; ``exact_search_budgeted``, whose whole-tree bound is
-``mindist`` at Q=1).  Then every kernel is timed at the main path's
+``mindist`` at Q=1), and the Coconut-Trie over the tree's 8,388,608
+sorted keys with the iSAX top-down baseline over 65,536 rows.  Then
+every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
 median rows per launch and at Q=1; ``zorder`` also over the tree's
@@ -83,6 +96,11 @@ BUDGET_LEAVES = (0, 16, 256, None)   # phase 12's max_leaves; None: unlimited
 BUDGETED_QUERIES = 8        # exact_search_budgeted calls, budget 1024
 BUDGETED_ROWS = 1024
 BUDGET_BYTE_LEAVES = (16, 256)   # phase 12's max_bytes, in whole-leaf charges
+# phase 13: phase 10's stream into a durable engine in a child process that
+# kills itself with SIGKILL after its last acknowledged insert
+DURABLE_CHILD = "--durable-child"   # the child's entry, with its store path
+DURABLE_CHILD_S = 600               # the child's time limit
+ISAX_ROWS = 65_536          # phase 14: rows inserted one at a time into iSAX
 
 
 def fail(msg: str) -> None:
@@ -318,6 +336,15 @@ def brute_rows(torch, raw, ids, queries, k):
     order = torch.sort(d, dim=1, stable=True).indices[:, :k]
     return (torch.gather(d, 1, order).cpu().numpy(),
             ids[torch.gather(i, 1, order)].cpu().numpy())
+
+
+def brute_merge(np, answers, k):
+    """One top-k from brute forces over disjoint row sets, given in id
+    order (stable on ties, as :func:`brute_rows`)."""
+    d = np.concatenate([a[0] for a in answers], 1)
+    i = np.concatenate([a[1] for a in answers], 1)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, order, 1), np.take_along_axis(i, order, 1)
 
 
 def agrees_with_brute(np, brute, got, what: str) -> int:
@@ -581,7 +608,8 @@ def streaming_phase(torch, np, x, queries) -> dict:
     """Phase 10: the first STREAM_ROWS walks, as host batches, through a
     btp engine at the paper's deployment; exact batches over a snapshot
     with its buffer, whole and windowed, against brute force; then a
-    flush, after which every answer keeps its bits."""
+    flush, after which every answer keeps its bits.  Returns the launches
+    and, for phase 13, the snapshot's answers and the ingest seconds."""
     from repro_torch.configs import INDEX, LEAF_SIZE
     from repro_torch.core import summarization as S
     from repro_torch.core.lsm import CoconutLSM
@@ -708,7 +736,8 @@ def streaming_phase(torch, np, x, queries) -> dict:
     print(f"stream memory: device peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
           f"GiB (reckoned {reckoned / 2**30:.1f} GiB)")
     eng.close()
-    return launches
+    return launches, {"whole": (d, o), "window": (dw, ow),
+                      "ingest_s": ingest_s}
 
 
 def modes_phase(torch, np, x, queries) -> dict:
@@ -716,7 +745,8 @@ def modes_phase(torch, np, x, queries) -> dict:
     (tp given each batch's summaries, so its flushes key with zorder):
     the same answer bits at window=None; then into a concurrent btp
     engine while a second thread searches its snapshots, each against
-    brute force over the rows it could see."""
+    brute force over the rows it could see.  Returns the launches and
+    the btp engine's answers (phase 13 reopens a store at this depth)."""
     import threading
     from repro_torch.configs import INDEX, LEAF_SIZE
     from repro_torch.core.lsm import CoconutLSM
@@ -818,7 +848,7 @@ def modes_phase(torch, np, x, queries) -> dict:
           f"merges {stats.get('bg_merges')}, backpressure waits "
           f"{stats.get('backpressure_waits', 0)}; launches "
           f"{launches['concurrent']}")
-    return launches
+    return launches, answers["btp"]
 
 
 def budget_mmap(torch, np, seg, queries, exact) -> dict:
@@ -926,6 +956,457 @@ def budget_phase(torch, np, tree, queries, exact, brute) -> dict:
           f"query; certified {certified} of {BUDGETED_QUERIES}, each equal "
           f"to the exact answer and brute force; launches {single}")
     return launches
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the durable engine, the Coconut-Trie
+# ---------------------------------------------------------------------------
+
+def durable_child(root: str) -> int:
+    """Phase 13's writer, in a process of its own (started by
+    ``durable_phase``; never a fork of the parent's CUDA context): phase
+    3's walks again from SEED, the first STREAM_ROWS of them streamed into
+    a btp engine over a store at ``root`` with ``wal_fsync="always"``,
+    then SIGKILL right after the last acknowledged insert.  Its one line
+    of JSON on stdout is what the parent reads."""
+    import hashlib
+    import os
+    import signal
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core.lsm import CoconutLSM
+    from repro_torch.data import series
+    from repro_torch.kernels import loader
+    from repro_torch.obs import get_registry
+    from repro_torch.storage import SegmentStore
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = make_data(torch, series, gen, N_ROWS, INDEX.series_len)
+    x_host = x[:STREAM_ROWS].cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    fsyncs = {"calls": 0, "s": 0.0}
+    real_fsync = os.fsync
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        real_fsync(fd)
+        fsyncs["calls"] += 1
+        fsyncs["s"] += time.perf_counter() - t0
+
+    os.fsync = timed_fsync          # the WAL's and the store's, counted
+    reg = get_registry()
+    h_commit = reg.histogram("compact.commit_ms")
+    h_flush = reg.histogram("compact.flush_ms")
+    eng = CoconutLSM(INDEX, buffer_capacity=STREAM_CAPACITY,
+                     leaf_size=LEAF_SIZE, size_ratio=2, mode="btp",
+                     store=SegmentStore(root), wal_fsync="always")
+    c0, f0 = (h_commit.count, h_commit.sum), (h_flush.count, h_flush.sum)
+    loader.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, STREAM_ROWS, STREAM_BATCH):
+        eng.insert(x_host[s:s + STREAM_BATCH])      # return == ack
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    commits, commit_ms = hist_delta(h_commit, c0)
+    flushes, flush_ms = hist_delta(h_flush, f0)
+    rec = {"ingest_s": ingest_s, "rows": STREAM_ROWS,
+           "runs": [r.n for r in eng.runs], "buffered": eng.ingest_lag(),
+           "clock": eng.clock, "commits": commits, "commit_ms": commit_ms,
+           "flushes": flushes, "flush_ms": flush_ms,
+           "fsyncs": fsyncs["calls"], "fsync_s": fsyncs["s"],
+           "ingest": eng.ingest.snapshot(), "launches": dict(loader.LAUNCHES),
+           "segment_bytes": eng.store.total_bytes(),
+           "wal_bytes_on_disk": eng.store.wal_bytes(),
+           "rows_sha256": hashlib.sha256(
+               x_host[::4096].tobytes()).hexdigest()}
+    print("durable child: " + json.dumps(rec), flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
+    return 1                        # not reached
+
+
+def reopen_split(reg, before) -> str:
+    """The registry's ``open.*_ms`` observed since ``before``."""
+    parts = []
+    for name in ("recover", "load", "replay"):
+        h = reg.histogram(f"open.{name}_ms")
+        parts.append(f"{name} {h.sum - before[name]:.1f} ms")
+    return ", ".join(parts)
+
+
+def durable_phase(torch, np, x, queries, stream, modes_answer) -> dict:
+    """Phase 13: the durable engine at phase 10's scale.  A child process
+    streams phase 10's rows into a store (WAL fsync "always") and is
+    killed with 524,288 acknowledged rows only in the WAL; ``open`` must
+    give back every row and phase 10's answers bit for bit; reopened with
+    tiers, the same bits through ``unpack_mindist`` off the committed
+    segments and a result cache that is never stale; checkpoint, close and
+    a second open keep ``n``; a concurrent engine at phase 11's depth
+    closes without a flush and reopens with every row.  The store goes at
+    the end, on failure too."""
+    import hashlib
+    import signal
+
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core import tree as T
+    from repro_torch.core.lsm import CoconutLSM
+    from repro_torch.kernels import loader
+    from repro_torch.obs import get_registry
+    from repro_torch.storage import SegmentStore, TieredLeafStore
+    from repro_torch.storage.packing import packed_code_width
+    cfg, leaf = INDEX, LEAF_SIZE
+    n, L, dev = STREAM_ROWS, cfg.series_len, x.device
+    cap, batch = STREAM_CAPACITY, STREAM_BATCH
+    buffered = n - 7 * cap
+    launches = {}
+    reg = get_registry()
+    work = ROOT / "build" / "durable_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        # a committed row on disk: raw, packed code, PAA, key words (at
+        # most), offset, timestamp, id; a WAL row: raw, timestamp, id.
+        # The peak is the post-reopen flush: one run of every row written
+        # beside the three it replaces, with the buffer still in the WAL
+        seg_row = L * 4 + packed_code_width(cfg.segments, cfg.bits) \
+            + cfg.segments * 4 + cfg.n_words * 4 + 3 * 8
+        wal_row = L * 4 + 2 * 8
+        n2 = n + batch
+        need = ((n - buffered) + n2) * seg_row + (buffered + batch) \
+            * wal_row + (1 << 30)
+        du = shutil.disk_usage(work)
+        print(f"durable: {du.free / 2**30:.1f} GiB free of "
+              f"{du.total / 2**30:.1f} GiB on the build disk, "
+              f"{need / 2**30:.1f} GiB needed at the peak")
+        check(du.free >= need, f"durable: {du.free} bytes free on disk, "
+                               f"{need} needed")
+
+        # -- 13a: the kill ---------------------------------------------------
+        store_dir = work / "btp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), DURABLE_CHILD,
+             str(store_dir)], capture_output=True, text=True,
+            timeout=DURABLE_CHILD_S)
+        child_s = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("durable child: ")]
+        check(proc.returncode == -signal.SIGKILL and len(lines) == 1,
+              f"durable child: exit {proc.returncode}, stdout "
+              f"{proc.stdout[-2000:]!r}, stderr {proc.stderr[-4000:]!r}")
+        rec = json.loads(lines[0][len("durable child: "):])
+        launches["kill_child"] = rec["launches"]
+        check(rec["rows_sha256"] == hashlib.sha256(
+            x[:n:4096].cpu().numpy().tobytes()).hexdigest(),
+            "durable child: its walks differ from phase 3's")
+        check(rec["runs"] == [cap, 2 * cap, 4 * cap]
+              and rec["buffered"] == buffered,
+              f"durable child: runs {rec['runs']}, {rec['buffered']} "
+              f"buffered")
+        ing = rec["ingest"]
+        check(ing["wal_appends"] == n // batch
+              and rec["launches"].get("fused_build", 0) == 7,
+              f"durable child: {ing}, launches {rec['launches']}")
+        on_disk = rec["segment_bytes"] + rec["wal_bytes_on_disk"]
+        rate = n / rec["ingest_s"]
+        mem_rate = n / stream["ingest_s"]
+        print(f"durable ingest (child, killed by SIGKILL after its last "
+              f"acked insert): {n} rows in {rec['ingest_s']:.3f} s "
+              f"({rate:.0f} rows/s; phase 10 in memory {mem_rate:.0f} "
+              f"rows/s, {rate / mem_rate:.3f}x); {rec['flushes']} flushes "
+              f"{rec['flush_ms']:.1f} ms; {rec['commits']} commits "
+              f"{rec['commit_ms']:.1f} ms ({rec['commit_ms'] / rec['commits']:.1f}"
+              f" ms each, compact.commit_ms: segments written, manifest, "
+              f"WAL rotated); WAL appends {ing['wal_appends']}, bytes "
+              f"{ing['wal_bytes']}, rotations {ing.get('wal_rotations', 0)}; "
+              f"fsyncs {rec['fsyncs']} in {rec['fsync_s']:.3f} s; on disk "
+              f"at the kill {rec['segment_bytes']} B of segments + "
+              f"{rec['wal_bytes_on_disk']} B of WAL = {on_disk / 2**30:.2f} "
+              f"GiB; child process {child_s:.1f} s (start, walks, ingest)")
+
+        # -- 13b: the reopen -------------------------------------------------
+        before = {k_: reg.histogram(f"open.{k_}_ms").sum
+                  for k_ in ("recover", "load", "replay")}
+        loader.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = CoconutLSM.open(str(store_dir))
+        reopen_s = time.perf_counter() - t0
+        split = reopen_split(reg, before)
+        sizes = [r.n for r in eng.runs]
+        check(eng.n == n and eng.clock == rec["clock"] == n
+              and sizes == [cap, 2 * cap, 4 * cap]
+              and eng.ingest_lag() == buffered
+              and eng.ingest.snapshot().get("wal_replayed_rows") == buffered
+              and eng.level_histogram() == {0: 1, 1: 1, 2: 1}
+              and eng.merges == 4 and eng.device.type == dev.type,
+              f"reopen: n {eng.n}, clock {eng.clock}, runs {sizes}, "
+              f"{eng.ingest_lag()} buffered, {eng.ingest.snapshot()}")
+        print(f"durable reopen: {reopen_s:.3f} s ({split}); n {eng.n}, "
+              f"clock {eng.clock}, runs {sizes} on {eng.device}, "
+              f"{buffered} rows replayed from the WAL into the buffer")
+        run1 = eng.runs[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols = T.to_numpy(run1.tree)
+        copy_s = time.perf_counter() - t0
+        nbytes = sum(c.nbytes for c in cols.values() if c is not None)
+        print(f"durable: a {run1.n}-row run's columns to the host as "
+              f"write_segment copies them (pageable .cpu()): {nbytes} B in "
+              f"{copy_s:.3f} s ({nbytes / copy_s / 1e9:.2f} GB/s)")
+        del cols, run1
+        snap = eng.snapshot(include_buffer=True)
+        t0 = time.perf_counter()
+        d, o, info = snap.search_exact_batch(queries, k=K)
+        full_s = time.perf_counter() - t0
+        stable_bits(np, (d, o), stream["whole"],
+                    "reopen: whole batch vs phase 10")
+        ties = agrees_with_brute(np, brute_rows(
+            torch, x[:n], torch.arange(n, device=dev), queries, K), (d, o),
+            "reopen: whole batch")
+        t0 = time.perf_counter()
+        dw, ow, iw = snap.search_exact_batch(queries, k=K,
+                                             window=STREAM_WINDOW)
+        win_s = time.perf_counter() - t0
+        stable_bits(np, (dw, ow), stream["window"],
+                    "reopen: windowed batch vs phase 10")
+        ts_min = snap.clock - STREAM_WINDOW
+        ties_w = agrees_with_brute(np, brute_rows(
+            torch, x[ts_min:n], torch.arange(ts_min, n, device=dev),
+            queries, K), (dw, ow), "reopen: windowed batch")
+        launches["reopen"] = dict(loader.LAUNCHES)
+        print(f"durable reopen search: whole {full_s:.3f} s, window "
+              f"{win_s:.3f} s; both equal to phase 10's answers bit for "
+              f"bit and to brute force ({ties} and {ties_w} tie swaps); "
+              f"{info['buffer_rows']} buffer rows scanned; launches "
+              f"{launches['reopen']}")
+        del snap
+        eng.close()
+
+        # -- 13c: tiers over the committed segments ----------------------------
+        tiers = TieredLeafStore(2 * TIER_DEVICE_BYTES,
+                                device_capacity_bytes=TIER_DEVICE_BYTES,
+                                promote_touches=1)
+        loader.LAUNCHES.clear()
+        eng = CoconutLSM.open(str(store_dir), tiers=tiers)
+        check(all(r.seg_handle is not None for r in eng.runs),
+              "tiers: a reopened run has no segment handle")
+        t0 = time.perf_counter()
+        td, to, _ = eng.snapshot(include_buffer=True).search_exact_batch(
+            queries, k=K)
+        tier_s = time.perf_counter() - t0
+        tl = dict(loader.LAUNCHES)
+        check(tl.get("unpack_mindist", 0) > 0,
+              f"tiers: the batch launched no unpack_mindist: {tl}")
+        stable_bits(np, (td, to), stream["whole"], "tiers: whole batch")
+        hits0 = tiers.result_cache.hits
+        t0 = time.perf_counter()
+        snap = eng.snapshot(include_buffer=True)
+        snap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rd, ro, _ = snap.search_exact_batch(queries, k=K)
+        hit_s = time.perf_counter() - t0
+        check(tiers.result_cache.hits == hits0 + 1,
+              "tiers: the repeated probe missed the result cache")
+        stable_bits(np, (rd, ro), stream["whole"], "tiers: cached batch")
+        # the windowed batch, the first at that key, under the profiler:
+        # unpack_mindist counted on the device
+        got = []
+        t0 = time.perf_counter()
+        busy, t_prof = device_profile(torch, lambda: got.append(
+            snap.search_exact_batch(queries, k=K, window=STREAM_WINDOW)))
+        tier_w_s = time.perf_counter() - t0
+        twd, two, _ = got[0]
+        stable_bits(np, (twd, two), stream["window"], "tiers: windowed")
+        check(any("UnpackMindist" in r[2] for r in t_prof),
+              "tiers: the profiler saw no unpack_mindist kernel")
+        kernel_total(t_prof, "UnpackMindist",
+                     "durable tiered unpack_mindist kernels",
+                     "the windowed batch")
+        del snap
+        launches["tiers"] = dict(loader.LAUNCHES)
+        print(f"durable tiers: whole {tier_s:.3f} s (unpack_mindist "
+              f"launches {tl.get('unpack_mindist', 0)}); the repeat from "
+              f"the result cache {hit_s * 1e3:.3f} ms after a snapshot of "
+              f"{snap_s * 1e3:.1f} ms (the buffer's rows concatenated); "
+              f"window {tier_w_s:.3f} s under the profiler, device busy "
+              f"{busy:.3f} ms ({100 * busy / (tier_w_s * 1e3):.2f}%); every"
+              f" answer phase 10's bits; {tiers.stats()}")
+
+        # an insert holding the queries themselves, then a checkpoint (a
+        # flush and a commit): the same probe must find them, not the
+        # cached answer
+        new = torch.cat([x[n:n2 - N_QUERIES], queries]).cpu().numpy()
+        hits1 = tiers.result_cache.hits
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        eng.insert(new)
+        eng.checkpoint()
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+        sizes = [r.n for r in eng.runs]
+        check(sizes == [n2] and eng.ingest_lag() == 0,
+              f"checkpoint: runs {sizes}, lag {eng.ingest_lag()}")
+        t0 = time.perf_counter()
+        nd, no, _ = eng.search_exact_batch(queries, k=K)
+        fresh_s = time.perf_counter() - t0
+        launches["checkpoint"] = dict(loader.LAUNCHES)
+        check(tiers.result_cache.hits == hits1,
+              "tiers: the probe after the checkpoint came from the cache")
+        check((no[:, 0] == np.arange(n2 - N_QUERIES, n2)).all()
+              and (nd[:, 0] == 0).all(),
+              "tiers: a query inserted as a row is not its own nearest")
+        ties = agrees_with_brute(np, brute_merge(np, [
+            brute_rows(torch, x[:n2 - N_QUERIES],
+                       torch.arange(n2 - N_QUERIES, device=dev), queries, K),
+            brute_rows(torch, queries,
+                       torch.arange(n2 - N_QUERIES, n2, device=dev),
+                       queries, K)], K), (nd, no),
+            "tiers: after the checkpoint")
+        disk_peak = eng.store.total_bytes() + eng.store.wal_bytes()
+        print(f"durable checkpoint: {batch} rows inserted and the "
+              f"{buffered + batch}-row buffer flushed, merged into one run "
+              f"of {n2} rows and committed in {ckpt_s:.3f} s; the same "
+              f"probe {fresh_s:.3f} s, not from the cache, equal to brute "
+              f"force over {n2} rows ({ties} tie swaps); on disk "
+              f"{disk_peak / 2**30:.2f} GiB after the commit")
+        eng.close()
+
+        # -- 13d: close, then a second open keeps n ----------------------------
+        before = {k_: reg.histogram(f"open.{k_}_ms").sum
+                  for k_ in ("recover", "load", "replay")}
+        t0 = time.perf_counter()
+        eng = CoconutLSM.open(str(store_dir))
+        reopen2_s = time.perf_counter() - t0
+        check(eng.n == n2 and eng.ingest.snapshot().get(
+            "wal_replayed_rows", 0) == 0,
+            f"second open: n {eng.n}, {eng.ingest.snapshot()}")
+        print(f"durable second open: {reopen2_s:.3f} s "
+              f"({reopen_split(reg, before)}); n {eng.n}, nothing to "
+              f"replay after the checkpoint")
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        shutil.rmtree(store_dir)
+
+        # -- 13e: a concurrent engine closed without a flush -------------------
+        nc = n // MODES_DEPTH
+        capc, batchc = cap // MODES_DEPTH, batch // MODES_DEPTH
+        cdir = work / "concurrent"
+        x_host = x[:nc].cpu().numpy()
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        eng = CoconutLSM(cfg, buffer_capacity=capc, leaf_size=leaf,
+                         mode="btp", concurrent=True,
+                         store=SegmentStore(str(cdir)))
+        for s in range(0, nc, batchc):
+            eng.insert(x_host[s:s + batchc])
+        eng.close()                     # drains; no flush of the tail
+        conc_s = time.perf_counter() - t0
+        eng = CoconutLSM.open(str(cdir))
+        cd, co, _ = eng.snapshot(include_buffer=True).search_exact_batch(
+            queries, k=K)
+        launches["concurrent"] = dict(loader.LAUNCHES)
+        replayed = eng.ingest.snapshot().get("wal_replayed_rows", 0)
+        check(eng.n == nc and replayed == nc % capc,
+              f"concurrent: reopened {eng.n} rows of {nc}, {replayed} "
+              f"replayed")
+        stable_bits(np, (cd, co), modes_answer,
+                    "concurrent: reopened vs phase 11's btp")
+        print(f"durable concurrent: {nc} rows in {conc_s:.3f} s, closed "
+              f"without a flush; reopened with every row (runs "
+              f"{[r.n for r in eng.runs]}, {replayed} replayed), answers "
+              f"phase 11's bits")
+        eng.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def trie_phase(torch, np, tree) -> dict:
+    """Phase 14: the Coconut-Trie over phase 3's sorted keys (leaves
+    contiguous over [0, N), at most a leaf of rows, each leaf's rows sharing
+    its top ``depth`` interleaved bits), then the paper's Sec. 4.2
+    comparison over the first ISAX_ROWS rows: iSAX entry at a time against
+    the trie over the same rows."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core import tree as T
+    from repro_torch.core.metrics import IOStats
+    from repro_torch.core.trie import ISaxIndex, build_trie
+    from repro_torch.kernels import loader
+    cfg, leaf = INDEX, LEAF_SIZE
+    w, b, n = cfg.segments, cfg.bits, tree.n
+
+    def check_trie(trie, keys, what):
+        starts = np.array([lf.start for lf in trie.leaves])
+        ends = np.array([lf.end for lf in trie.leaves])
+        depths = np.array([lf.depth for lf in trie.leaves])
+        check(starts[0] == 0 and ends[-1] == len(keys)
+              and (starts[1:] == ends[:-1]).all(),
+              f"{what}: leaves are not contiguous over [0, N)")
+        check((ends - starts).max() <= leaf and (ends > starts).all(),
+              f"{what}: a leaf holds {(ends - starts).max()} rows")
+        # sorted keys: a leaf's rows share a prefix iff its first and last
+        # rows do.  Common prefix = the first differing bit of the words
+        diff = keys[starts] ^ keys[ends - 1]
+        nz = diff != 0
+        word = np.where(nz.any(1), nz.argmax(1), keys.shape[1])
+        dw = diff[np.arange(len(diff)), np.minimum(word, keys.shape[1] - 1)]
+        msb = np.floor(np.log2(np.maximum(dw, 1))).astype(np.int64)
+        common = np.where(word < keys.shape[1], 32 * word + 31 - msb,
+                          32 * keys.shape[1])
+        check((common >= depths).all(),
+              f"{what}: a leaf's rows do not share its top depth bits")
+
+    loader.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys = tree.keys.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trie = build_trie(keys, w=w, b=b, leaf_size=leaf, io=IOStats(leaf))
+    split_s = time.perf_counter() - t0
+    check_trie(trie, keys, "trie")
+    tree_fill = n / (tree.n_leaves * leaf)
+    print(f"trie: build_trie over {n} sorted keys in {copy_s + split_s:.3f}"
+          f" s (the key column to the host {copy_s:.3f} s, "
+          f"{keys.nbytes} B; the range split {split_s:.3f} s); "
+          f"{trie.n_leaves} leaves, {trie.internal_nodes} internal nodes, "
+          f"fill {trie.fill:.4f}, depth {min(l.depth for l in trie.leaves)}"
+          f"..{max(l.depth for l in trie.leaves)}; the tree "
+          f"{tree.n_leaves} leaves, fill {tree_fill:.4f}")
+
+    order = torch.argsort(tree.offsets)[:ISAX_ROWS]   # the first rows
+    codes = tree.codes[order].cpu().numpy()
+    sub = T.build(tree.raw[order], cfg, leaf_size=leaf)
+    sub_keys = sub.keys.cpu().numpy()
+    tio = IOStats(leaf)
+    t0 = time.perf_counter()
+    sub_trie = build_trie(sub_keys, w=w, b=b, leaf_size=leaf, io=tio)
+    sub_s = time.perf_counter() - t0
+    check_trie(sub_trie, sub_keys, "trie over the iSAX rows")
+    isax = ISaxIndex(cfg, leaf_size=leaf, io=IOStats(leaf))
+    t0 = time.perf_counter()
+    isax.bulk_insert(codes)
+    isax_s = time.perf_counter() - t0
+    check(isax.n == ISAX_ROWS and sum(len(lf.entries) for lf in
+                                      isax.leaves()) == ISAX_ROWS,
+          "isax: entries lost")
+    check(isax.io.random_blocks >= 2 * ISAX_ROWS,
+          f"isax: {isax.io.random_blocks} random blocks")
+    print(f"trie vs iSAX over the first {ISAX_ROWS} rows (paper Sec. 4.2):"
+          f" iSAX top-down (host, an entry at a time) {isax_s:.3f} s, "
+          f"{isax.n_leaves} leaves, fill {isax.fill:.4f}, random blocks "
+          f"{isax.io.random_blocks}, sequential blocks "
+          f"{isax.io.total_blocks - isax.io.random_blocks}; Coconut-Trie "
+          f"{sub_s:.4f} s over the sorted keys, {sub_trie.n_leaves} leaves, "
+          f"fill {sub_trie.fill:.4f}, random blocks {tio.random_blocks}, "
+          f"sequential blocks {tio.total_blocks - tio.random_blocks}; the "
+          f"tree {sub.n_leaves} leaves, fill "
+          f"{ISAX_ROWS / (sub.n_leaves * leaf):.4f}")
+    return {"trie": dict(loader.LAUNCHES)}
 
 
 def main() -> int:
@@ -1142,21 +1623,32 @@ def main() -> int:
 
     # -- 10: streaming ingest at full width (btp) --------------------------------
     t0 = time.perf_counter()
-    stream_l = streaming_phase(torch, np, x, queries)
+    stream_l, stream_out = streaming_phase(torch, np, x, queries)
     torch.cuda.empty_cache()
     print(f"streaming phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 11: the three modes and the concurrent engine at 1/8 depth --------------
     t0 = time.perf_counter()
-    modes_l = modes_phase(torch, np, x, queries)
-    del x
+    modes_l, modes_answer = modes_phase(torch, np, x, queries)
     torch.cuda.empty_cache()
     print(f"modes phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 13: the durable engine (run while phase 3's walks are on the card) ---
+    t0 = time.perf_counter()
+    durable_l = durable_phase(torch, np, x, queries, stream_out, modes_answer)
+    del x
+    torch.cuda.empty_cache()
+    print(f"durable phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 12: budgeted search on the tree -----------------------------------------
     t0 = time.perf_counter()
     budget_l = budget_phase(torch, np, tree, queries, (e_d, e_o), (b_d, b_o))
     print(f"budget phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 14: the Coconut-Trie and the iSAX top-down baseline ------------------------
+    t0 = time.perf_counter()
+    trie_l = trie_phase(torch, np, tree)
+    print(f"trie phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 9: each kernel at the main path's shapes ----------------------------------
     timer = Timer(torch)
@@ -1477,7 +1969,8 @@ def main() -> int:
     launches = {}
     for phase in (build_launches, eager_launches, fused_launches,
                   *seg_out["launches"].values(), *stream_l.values(),
-                  *modes_l.values(), *budget_l.values()):
+                  *modes_l.values(), *durable_l.values(),
+                  *budget_l.values(), *trie_l.values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
     launches["unpack_mindist_hot"] = \
@@ -1527,7 +2020,7 @@ def main() -> int:
           f"cold]: {ms1:.4f} ms (plain {plain1:.4f} ms, bound {b1:.4f} ms "
           f"by {by1})")
 
-    # -- 13: the record and the result -----------------------------------------------
+    # -- the record and the result -----------------------------------------------
     print(json.dumps({"kernels": record}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -1537,4 +2030,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == DURABLE_CHILD:
+        sys.exit(durable_child(sys.argv[2]))
     sys.exit(main())

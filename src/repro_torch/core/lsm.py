@@ -21,9 +21,22 @@ there (the ``fused_build`` kernel, or ``zorder`` when every buffered part
 was inserted with its ``summaries=``); a merge is :func:`tree.merge_trees`
 there.  The buffer stays on the host until its flush.
 
-With ``concurrent=True`` the engine moves flushes and merges onto a
-background worker (:mod:`repro_torch.ingest.compactor`): ``insert`` only
-appends to the buffer (with bounded-debt backpressure), and every
+With a :class:`repro_torch.storage.store.SegmentStore` attached, every
+flush and merge also lands on disk: new runs are written as segment
+files (each column copied from the card to the host first) and the
+manifest is atomically committed once per flush, so the index survives
+process restart (``CoconutLSM.open``) and a crash anywhere replays
+cleanly from the last committed manifest.  The buffer is covered by a
+write-ahead log (:mod:`repro_torch.ingest.wal`) beside the segments:
+every ``insert`` is logged before it is acknowledged and replayed on
+reopen, so acked-but-unflushed rows survive a crash too.  Store, manifest
+and log are byte-compatible with the reference's, so either package
+reopens the other's index.
+
+With ``concurrent=True`` the engine moves flushes, merges and manifest
+commits onto a background worker (:mod:`repro_torch.ingest.compactor`):
+``insert`` only appends to the WAL and the buffer (with bounded-debt
+backpressure), and every
 ``search_*``/``search_*_batch`` runs against an immutable
 :class:`repro_torch.ingest.snapshot.Snapshot` — frozen run list plus a
 frozen copy of the buffer — so exact answers are bit-identical to the
@@ -34,16 +47,12 @@ published, so a snapshot never holds a half-built run.
 
 Every row carries a **global id** (by default its position in this
 engine's insert stream), kept per run and reported as the answer
-"offset" by every search path.  ``insert(ids=, key_fence=)``, the
-per-run/snapshot key fences, ``search_exact*(bsf=)`` external bounds,
-``advance_clock`` and ``debt_cv`` are the hooks a sharded router uses.
-
-The durable engine — a segment store under the runs, the write-ahead
-log, ``CoconutLSM.open``, tiers over committed segments — is ROADMAP
-queue A item 4b: ``store=``, ``tiers=``, a WAL fsync policy, ``open`` and
-``checkpoint`` raise :class:`NotImplementedError` until then.  Without a
-store, rows still buffered at ``close()`` are dropped, as in the
-reference (in-memory engines are volatile by contract).
+"offset" by every search path; ids are WAL-logged and persisted per
+run.  ``insert(ids=, key_fence=)``, the per-run/snapshot key fences,
+``search_exact*(bsf=)`` external bounds, ``advance_clock`` and ``debt_cv``
+are the hooks a sharded router uses.  Without a store, rows still
+buffered at ``close()`` are dropped, as in the reference (in-memory
+engines are volatile by contract).
 
 :func:`from_numpy` / :func:`to_numpy` carry an engine's whole state
 (runs with their levels and time ranges, the buffer, the clock) across
@@ -52,6 +61,7 @@ as numpy arrays.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -66,10 +76,6 @@ from ..obs import get_registry, span as _span
 from .metrics import IngestMetrics, IOStats
 
 __all__ = ["CoconutLSM", "Run", "from_numpy", "to_numpy"]
-
-_DURABLE = ("the durable engine (segment store, write-ahead log, "
-            "CoconutLSM.open, checkpoint, tiers) comes with ROADMAP queue A "
-            "item 4b")
 
 
 def _combine_fences(fences) -> Optional[Tuple[int, int]]:
@@ -107,6 +113,12 @@ class Run:
     level: int
     t_min: int
     t_max: int
+    segment: Optional[str] = None   # on-disk segment file (store-backed)
+    # open Segment reader for the file above — kept only when a tiered
+    # leaf store is attached, so snapshot partitions can serve cached
+    # leaf blocks off the (packed) on-disk columns
+    seg_handle: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
     _fence: Optional[Tuple[int, int]] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -152,8 +164,8 @@ class CoconutLSM:
     guarded by one lock; run *contents* are immutable once published, so a
     snapshot only needs the lock long enough to copy the list head.  In
     synchronous mode (default) everything happens on the calling thread;
-    with ``concurrent=True`` a single compactor thread owns flush/merge
-    and the calling thread only ever appends.
+    with ``concurrent=True`` a single compactor thread owns
+    flush/merge/commit and the calling thread only ever appends.
     """
 
     def __init__(self, cfg: S.SummaryConfig, *,
@@ -171,8 +183,10 @@ class CoconutLSM:
                  device=None):
         if mode not in ("pp", "tp", "btp"):
             raise ValueError(f"unknown windowing mode {mode!r}")
-        if store is not None or tiers is not None or wal_fsync != "always":
-            raise NotImplementedError(_DURABLE)
+        if store is not None and store.exists():
+            raise ValueError(
+                f"{store.root} already holds a committed index — reopen it "
+                "with CoconutLSM.open(store) instead of building over it")
         self.device = T._device_for(None, device)
         self.cfg = cfg
         self.buffer_capacity = buffer_capacity
@@ -181,11 +195,19 @@ class CoconutLSM:
         self.mode = mode
         self.materialized = materialized
         self.io = io if io is not None else IOStats(leaf_size)
-        self.store = None
-        self.tiers = None
+        self.store = store                 # Optional[SegmentStore]
+        if store is not None and store.io is None:
+            store.io = self.io             # disk writes charge index stats
+        # Optional[repro_torch.storage.tiers.TieredLeafStore]: leaf-block
+        # and query-result caching over the committed segments
+        self.tiers = tiers if store is not None else None
         # monotone data-visibility epoch: bumped whenever the rows a
-        # snapshot could see change (insert, run publish, merge) — the
-        # result cache's key once a store brings one
+        # snapshot could see change (insert, run publish, merge).  The
+        # result cache keys on it, so an answer computed against an older
+        # view is unreachable the instant the view changes.  (The clock
+        # alone is NOT a safe key: a sync-mode insert advances the clock
+        # while the rows stay invisible until flush — and the flush
+        # itself doesn't advance it.)
         self.data_epoch = 0
         self.runs: List[Run] = []          # newest first
         self._buf_raw: List[np.ndarray] = []
@@ -199,6 +221,10 @@ class CoconutLSM:
         # -- ingest subsystem state ----------------------------------------
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
+        # serializes WAL file I/O (append order == buffer order) without
+        # holding the engine lock across a disk fsync; ALWAYS acquired
+        # before the engine lock, never after (deadlock ordering)
+        self._wal_lock = threading.Lock()
         self._flushing: List[_PendingFlush] = []
         self._dirty = False                # runs changed since last commit
         self._rows_inserted = 0            # total rows ever accepted
@@ -209,6 +235,13 @@ class CoconutLSM:
         # retired debt unit (a sharded router's shared backpressure)
         self.debt_cv: Optional[threading.Condition] = None
         self.ingest = IngestMetrics()
+        self.wal = None
+        if store is not None:
+            from ..ingest.wal import WriteAheadLog
+            self.wal = WriteAheadLog(store.root, fsync=wal_fsync,
+                                     io=self.io, metrics=self.ingest)
+            self._commit()   # empty manifest: the index is reopenable from
+            # birth, so a crash before the first flush still replays the WAL
         self._compactor = None
         if concurrent:
             from ..ingest.compactor import Compactor
@@ -216,19 +249,177 @@ class CoconutLSM:
 
     # ------------------------------------------------------------ persistence
     @classmethod
-    def open(cls, store, **kwargs) -> "CoconutLSM":
-        """Reopen a persisted index: ROADMAP queue A item 4b."""
-        raise NotImplementedError(_DURABLE)
+    def open(cls, store, *, io: Optional[IOStats] = None,
+             concurrent: bool = False,
+             wal_fsync: str = "always",
+             max_debt: int = 4,
+             tiers=None,
+             device=None) -> "CoconutLSM":
+        """Reopen a persisted index from its manifest (restart/recovery).
 
-    def checkpoint(self) -> None:
-        """A durable manifest commit: ROADMAP queue A item 4b."""
-        raise NotImplementedError(_DURABLE)
+        ``store`` is a ``SegmentStore`` or a directory path.  Runs the
+        recovery protocol first (drops uncommitted manifest temps and
+        orphan segments), rebuilds every run from its segment file with
+        ``Segment.to_tree`` on ``device`` (the card unless
+        ``device="cpu"``; without CUDA and no explicit CPU request this
+        raises), then replays the write-ahead log from the manifest's
+        ``wal_start`` so every acknowledged insert — flushed or still
+        buffered at crash time — is recovered.  Searches on the reopened
+        index are identical to the index that committed the manifest
+        plus the replayed tail.  The three stages are timed into the
+        registry's ``open.recover_ms``, ``open.load_ms`` and
+        ``open.replay_ms``.
+        """
+        from ..ingest.wal import WriteAheadLog
+        from ..storage.store import SegmentStore
+        dev = T._device_for(None, device)
+        reg = get_registry()
+        t0 = time.perf_counter()
+        if isinstance(store, str):
+            store = SegmentStore(store, io=io)
+        store.recover()
+        manifest = store.load_manifest()
+        if manifest is None:
+            raise FileNotFoundError(
+                f"no committed manifest in {store.root}")
+        t1 = time.perf_counter()
+        reg.histogram("open.recover_ms").observe((t1 - t0) * 1e3)
+        cfg = SegmentStore.cfg_from_manifest(manifest)
+        lsm = cls(cfg,
+                  buffer_capacity=manifest["buffer_capacity"],
+                  leaf_size=manifest["leaf_size"],
+                  size_ratio=manifest["size_ratio"],
+                  mode=manifest["mode"],
+                  materialized=manifest["materialized"],
+                  io=io, store=None, device=dev)
+        lsm.store = store
+        if store.io is None:
+            store.io = lsm.io
+        lsm.tiers = tiers
+        lsm.clock = manifest["clock"]
+        lsm.merges = manifest.get("merges", 0)
+        for entry in manifest["runs"]:     # manifest keeps newest-first
+            seg = store.open_segment(entry["file"])
+            try:
+                tree = seg.to_tree(device=dev)
+            finally:
+                if tiers is None:
+                    seg.close()
+            lsm.runs.append(Run(tree=tree, level=entry["level"],
+                                t_min=entry["t_min"], t_max=entry["t_max"],
+                                segment=entry["file"],
+                                seg_handle=seg if tiers is not None
+                                else None))
+        # pre-ids stores (segments without an ids column): synthesize
+        # unique global ids — oldest-first run bases + the run's own
+        # offsets (unique within a run) — so merges with new id-carrying
+        # runs never silently drop the column and report ambiguous
+        # component-local offsets as ids
+        if any(r.tree.ids is None for r in lsm.runs):
+            base = 0
+            for r in reversed(lsm.runs):   # oldest first
+                if r.tree.ids is None:
+                    r.tree.ids = base + r.tree.offsets
+                base += r.n
+        _settle(dev)
+        t2 = time.perf_counter()
+        reg.histogram("open.load_ms").observe((t2 - t1) * 1e3)
+        durable = sum(r.n for r in lsm.runs)
+        lsm._rows_inserted = durable
+        # -- WAL replay: recover the acked-but-uncommitted insert tail ------
+        wal_start = manifest.get("wal_start", durable)
+        tail = WriteAheadLog.replay(store.root, wal_start)
+        for raw, ts, ids in tail:
+            if len(raw):
+                lsm.ingest.add("wal_replayed_rows", len(raw))
+                # ids ride in the WAL record so a replayed row keeps the
+                # global id it was acked with (sharded engines route ids
+                # that are NOT the shard-local stream position)
+                lsm.insert(raw, ts, ids=ids)   # may flush+commit, WAL-less
+        lsm.clock = max(lsm.clock, manifest["clock"])
+        # fresh WAL holding exactly the still-buffered tail; supersedes and
+        # deletes the replayed files
+        lsm.wal = WriteAheadLog(store.root, fsync=wal_fsync,
+                                io=lsm.io, metrics=lsm.ingest)
+        lsm._rotate_wal()
+        _settle(dev)
+        reg.histogram("open.replay_ms").observe(
+            (time.perf_counter() - t2) * 1e3)
+        if concurrent:
+            from ..ingest.compactor import Compactor
+            lsm.concurrent = True
+            lsm.max_debt = max_debt
+            lsm._compactor = Compactor(lsm)
+        return lsm
+
+    def _rotate_wal(self) -> None:
+        """Supersede the WAL with one record per still-buffered batch.
+        Called with the manifest already committed.  Takes the WAL lock
+        first (same ordering as ``insert``) so no append can race the file
+        swap, then the engine lock only to capture the buffered tail."""
+        if self.wal is None:
+            return
+        with self._wal_lock:
+            with self._lock:             # reference capture only
+                durable = sum(r.n for r in self.runs)
+                parts = []
+                for e in self._flushing:
+                    parts.extend(zip(e.raw_parts, e.ts_parts, e.id_parts))
+                parts.extend(zip(self._buf_raw, self._buf_ts,
+                                 self._buf_ids))
+            tail = []
+            row = durable
+            for raw, ts, ids in parts:
+                tail.append((row, raw, ts, ids))
+                row += len(raw)
+            # file I/O outside the engine lock; _wal_lock keeps appends out
+            self.wal.rotate(tail)
 
     def _commit(self) -> None:
-        """The durability point of a flush.  Without a store there is
-        nothing to write: the run set is simply no longer dirty."""
+        """Atomically publish the current run set, then GC retired files
+        and rotate the WAL down to the still-buffered tail.  Without a
+        store there is nothing to write: the run set is simply no longer
+        dirty.
+
+        Segments are written HERE, after compaction settles, so a flush
+        that cascades through several merge levels persists only the runs
+        that survive — transient intermediate runs never hit disk.  Each
+        new run's columns are copied from its device to the host by
+        ``write_segment``.
+        """
         with self._lock:
             self._dirty = False
+            runs = list(self.runs)
+        if self.store is None:
+            return
+        t0 = time.perf_counter()
+        with _span("compact.commit", runs=len(runs)):
+            from ..storage.store import SegmentStore
+            for r in runs:
+                if r.segment is None:
+                    r.segment = self.store.write_tree(r.tree)
+                if self.tiers is not None and r.seg_handle is None:
+                    r.seg_handle = self.store.open_segment(r.segment)
+            manifest = SegmentStore.manifest_for(
+                self.cfg,
+                [{"file": r.segment, "level": r.level,
+                  "t_min": r.t_min, "t_max": r.t_max} for r in runs],
+                clock=self.clock, mode=self.mode,
+                buffer_capacity=self.buffer_capacity,
+                leaf_size=self.leaf_size, size_ratio=self.size_ratio,
+                materialized=self.materialized, merges=self.merges,
+                wal_start=sum(r.n for r in runs))
+            self.store.commit_manifest(manifest)
+            removed = self.store.gc()
+            if self.tiers is not None:
+                # retired segment files can never be read again (ids are
+                # never reused) — drop their cached leaf blocks
+                for f in removed or ():
+                    self.tiers.invalidate(os.path.join(self.store.root, f))
+            self.ingest.add("commits")
+            self._rotate_wal()
+        get_registry().histogram("compact.commit_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
 
     # ------------------------------------------------------------------ write
     def _check_open(self) -> None:
@@ -244,9 +435,10 @@ class CoconutLSM:
         copied to the host).
 
         Synchronous mode: buffered, may trigger an inline flush + merge
-        cascade.  Concurrent mode: buffered, then the compactor is
-        signalled; the call blocks only when compaction debt exceeds
-        ``max_debt`` (backpressure).
+        cascade.  Concurrent mode: logged to the WAL and buffered, then
+        the compactor is signalled; the call blocks only when compaction
+        debt exceeds ``max_debt`` (backpressure).  On return the batch is
+        acked: with a store and ``wal_fsync="always"`` it survives a crash.
 
         ``ids``: global row ids for the batch; defaults to this engine's
         insert-stream positions.
@@ -265,32 +457,40 @@ class CoconutLSM:
             raw = raw.detach().cpu().numpy()
         raw = np.asarray(raw, np.float32)
         n = raw.shape[0]
-        with self._cv:
-            if timestamps is None:
-                timestamps = np.arange(self.clock, self.clock + n,
-                                       dtype=np.int64)
-            else:
-                timestamps = np.asarray(timestamps, np.int64)
-            # monotone: out-of-order caller timestamps never regress the
-            # clock (a regressing clock would shift window cuts)
-            self.clock = max(self.clock, int(timestamps.max()) + 1)
-            self.data_epoch += 1
-            start_row = self._rows_inserted
-            self._rows_inserted += n
-            if ids is None:
-                ids = np.arange(start_row, start_row + n, dtype=np.int64)
-            else:
-                ids = np.asarray(ids, np.int64)
-            self._buf_raw.append(raw)
-            self._buf_ts.append(timestamps)
-            self._buf_ids.append(ids)
-            self._buf_fence.append(key_fence)
-            self._buf_sum.append(summaries)
-            self._buf_count += n
-            self.ingest.add("rows_ingested", n)
-            self.ingest.set_gauge("ingest_lag_rows", self._lag_locked())
-            if self.concurrent:
-                self._cv.notify_all()
+        with self._wal_lock:           # fixes WAL record order == FIFO order
+            with self._cv:
+                if timestamps is None:
+                    timestamps = np.arange(self.clock, self.clock + n,
+                                           dtype=np.int64)
+                else:
+                    timestamps = np.asarray(timestamps, np.int64)
+                # monotone: out-of-order caller timestamps never regress
+                # the clock (a regressing clock would shift window cuts)
+                self.clock = max(self.clock, int(timestamps.max()) + 1)
+                self.data_epoch += 1
+                start_row = self._rows_inserted
+                self._rows_inserted += n
+                if ids is None:
+                    ids = np.arange(start_row, start_row + n,
+                                    dtype=np.int64)
+                else:
+                    ids = np.asarray(ids, np.int64)
+                self._buf_raw.append(raw)
+                self._buf_ts.append(timestamps)
+                self._buf_ids.append(ids)
+                self._buf_fence.append(key_fence)
+                self._buf_sum.append(summaries)
+                self._buf_count += n
+                self.ingest.add("rows_ingested", n)
+                self.ingest.set_gauge("ingest_lag_rows", self._lag_locked())
+                if self.concurrent:
+                    self._cv.notify_all()
+            # the disk write + fsync happens OUTSIDE the engine lock, so
+            # snapshots and the compactor never wait on an insert's sync.
+            # (If a flush commits these rows before the record lands, the
+            # manifest's wal_start simply skips it at replay.)
+            if self.wal is not None:
+                self.wal.append(raw, timestamps, start_row, ids=ids)
         if self.concurrent:
             with self._cv:             # bounded-debt backpressure
                 throttled = False
@@ -310,7 +510,8 @@ class CoconutLSM:
         """Force-flush the in-memory buffer.
 
         In concurrent mode this drains the compactor: on return every
-        buffered row is flushed and the leveling policy is settled.
+        buffered row is flushed, the leveling policy is settled, and the
+        manifest (if any) is committed.
         """
         self._check_open()
         if self.concurrent:
@@ -318,6 +519,24 @@ class CoconutLSM:
             return
         if self._buf_count:
             self._flush(force=True)
+
+    def checkpoint(self) -> None:
+        """Request a durable manifest commit without stalling ingest.
+
+        Synchronous mode: equivalent to ``flush()`` (inline flush+commit).
+        Concurrent mode: marks the run set dirty and nudges the compactor,
+        which commits (and rotates the WAL) as soon as current debt
+        retires — the call returns immediately.  Acked inserts are already
+        WAL-durable either way; a checkpoint only bounds replay length.
+        """
+        self._check_open()
+        if not self.concurrent:
+            self.flush()
+            return
+        with self._cv:
+            if self.store is not None:
+                self._dirty = True
+            self._cv.notify_all()
 
     # ------------------------------------------------- flush/merge primitives
     def _take_head(self, force: bool = False) -> Optional[_PendingFlush]:
@@ -465,7 +684,8 @@ class CoconutLSM:
             self._cv.notify_all()
 
     def _flush(self, force: bool = False) -> None:
-        """Synchronous flush: build + publish + full merge cascade."""
+        """Synchronous flush: build + publish + full merge cascade + one
+        atomic manifest commit."""
         entry = self._take_head(force)
         if entry is None:
             return
@@ -474,7 +694,7 @@ class CoconutLSM:
             while (plan := self._merge_plan()) is not None:
                 a, b = plan
                 self._apply_merge(a, b, self._merge_trees(a, b))
-        self._commit()
+        self._commit()      # one atomic manifest commit per flush
 
     # ------------------------------------------------ background-worker hooks
     def _bg_work_pending(self, force: bool) -> bool:
@@ -492,7 +712,7 @@ class CoconutLSM:
     def _bg_step(self, force: bool = False) -> bool:
         """Retire one unit of debt: flush > merge > commit.  Expensive work
         (tree build, merge) runs outside the lock; only the buffer-head
-        detach and the run-list swap take it."""
+        detach, the run-list swap, and the WAL rotation take it."""
         entry = self._take_head(force)
         if entry is not None:
             self._publish_run(entry, self._build_run(entry))
@@ -546,14 +766,19 @@ class CoconutLSM:
 
     # --------------------------------------------------------------- lifetime
     def close(self) -> None:
-        """Deterministic shutdown: drain + stop the compactor thread.
-        Idempotent.  Rows still buffered are dropped (in-memory engines
-        are volatile by contract)."""
+        """Deterministic shutdown: drain + stop the compactor thread and
+        close the WAL handle.  Idempotent.  Rows still buffered without a
+        store are dropped (in-memory engines are volatile by contract);
+        with a store they remain in the WAL and replay on reopen."""
         if self._closed:
             return
         self._closed = True
-        if self._compactor is not None:
-            self._compactor.stop(drain=True)
+        try:
+            if self._compactor is not None:
+                self._compactor.stop(drain=True)
+        finally:
+            if self.wal is not None:
+                self.wal.close()
 
     def __enter__(self) -> "CoconutLSM":
         return self
@@ -616,7 +841,9 @@ class CoconutLSM:
         fence = _combine_fences(fences) if fences else None
         return Snapshot(runs=runs, clock=clock, mode=self.mode,
                         io=self.io, buffer=buf, key_fence=fence,
-                        cfg=self.cfg, tiers=None, epoch=epoch, scope=None,
+                        cfg=self.cfg, tiers=self.tiers, epoch=epoch,
+                        scope=(self.store.root
+                               if self.store is not None else None),
                         device=self.device)
 
     def search_approx(self, query, *, k: int = 1,

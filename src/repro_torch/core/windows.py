@@ -22,9 +22,10 @@ leaves; PP disables the temporal drop and post-filters everything.
   * BTP (bounded temporal part.)   — the paper's contribution: ratio-2
     merging bounds partitions at O(log N) while windows skip old runs.
 
-The engine's runs live on the card unless ``device="cpu"``.  The sharded
-engine (``shards > 1``) is ROADMAP queue A item 7 and a durable one
-(``store=``) queue A item 4b; both raise :class:`NotImplementedError`.
+The engine's runs live on the card unless ``device="cpu"``.  A store
+(``store=``) makes the engine durable (segments + WAL).  The sharded
+engine (``shards > 1``, persisted through ``data_dir=``) is ROADMAP queue
+A item 7; both options raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -52,8 +53,9 @@ def window_engine(mode: str, cfg: SummaryConfig, *,
                   device=None):
     """Build a window-query engine; ``mode`` in {"pp", "tp", "btp"}.
 
-    ``concurrent``/``max_debt`` pass through to :class:`CoconutLSM`:
-    ``concurrent=True`` moves flushes and merges to the background
+    ``store``/``concurrent``/``wal_fsync``/``max_debt`` pass through to
+    :class:`CoconutLSM`: a store makes the engine durable (segments +
+    WAL), ``concurrent=True`` moves flushes and merges to the background
     compactor so window queries run against immutable snapshots while
     ingest continues.  Concurrent engines should be closed (or used as a
     context manager) so the compactor thread shuts down deterministically.
@@ -66,8 +68,8 @@ def window_engine(mode: str, cfg: SummaryConfig, *,
             "queue A item 7")
     if data_dir is not None:
         raise NotImplementedError(
-            "data_dir= persists a sharded engine: ROADMAP queue A items 4b "
-            "and 7")
+            "data_dir= persists a sharded engine, which comes with the "
+            "sharded LSM, ROADMAP queue A item 7")
     return CoconutLSM(cfg, buffer_capacity=buffer_capacity,
                       leaf_size=leaf_size, mode=mode,
                       materialized=materialized, io=io, store=store,

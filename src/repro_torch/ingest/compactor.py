@@ -1,19 +1,20 @@
 """Background compaction: flushes and merges off the insert hot path.
 
-The synchronous engine does flush → merge-cascade inline in ``insert``, so
-a big BTP merge stalls every caller (the very stall the paper's streaming
-claim is about).  :class:`Compactor` moves that work to one worker
-thread, following the direction of ParIS/MESSI (*Data Series Indexing
-Gone Parallel*): inserts only append to the in-memory buffer, queries
-read immutable snapshots, and the worker retires compaction debt one
-unit at a time:
+The synchronous engine does flush → merge-cascade → manifest-commit inline
+in ``insert``, so a big BTP merge stalls every caller (the very stall the
+paper's streaming claim is about).  :class:`Compactor` moves that work to
+one worker thread, following the direction of ParIS/MESSI (*Data Series
+Indexing Gone Parallel*): inserts only append to the WAL and the in-memory
+buffer, queries read immutable snapshots, and the worker retires
+compaction debt one unit at a time:
 
     1. a full buffer head  -> build a level-0 run, publish it atomically;
     2. else one merge from the leveling policy (pp: collapse-to-one,
        btp: ratio-r) — ``merge_trees`` runs outside the engine lock,
        the run-list swap inside it;
-    3. else, if runs changed, mark them committed (the durable commit
-       comes with the on-disk store).
+    3. else, if runs changed since the last commit, write segments +
+       commit the manifest + rotate the WAL (durability point); without
+       a store the runs are simply marked committed.
 
 The worker's kernels (``fused_build`` or ``zorder``, the merge's sort)
 go to the default CUDA stream, the one the searching threads use too,
@@ -32,7 +33,10 @@ compaction.  ``drain()`` is the synchronization point for ``flush()`` and
 A worker exception is captured, parked on :attr:`error`, and re-raised on
 the next ``insert``/``flush``/``close`` — ingest fails loudly rather than
 silently accumulating unflushed data.  The thread is a daemon, so a
-process exiting without ``close()`` never hangs on join.
+process exiting without ``close()`` (the crash we recover from) never
+hangs on join.  ``close()`` drains first, so a concurrent engine closed
+mid-stream commits every finished run and leaves the rest of its
+acknowledged rows in the WAL, where ``CoconutLSM.open`` finds them.
 """
 from __future__ import annotations
 
@@ -117,7 +121,7 @@ class Compactor:
                 with self._cv:
                     while True:
                         if self._stop:
-                            return
+                            return     # unfinished tail stays in the WAL
                         force = self._force_until > self._drain_done
                         if eng._bg_work_pending(force):
                             break

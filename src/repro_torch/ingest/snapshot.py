@@ -40,8 +40,11 @@ The single-query entry points are thin wrappers over the batched ones
 (Q=1) returning length-k arrays.  The runs' trees live on the engine's
 device (the card unless the engine was made with ``device="cpu"``); the
 frozen buffer stays on the host and is copied to that device per scan.
-The result-cache branch serves an engine with a tiered store, which
-comes with the on-disk store; without one it is inert.
+An engine with a store and ``tiers=`` hands its snapshots the tiered leaf
+store: each committed run is then read off its segment file through the
+cache (its v3 code blocks reach ``unpack_mindist``, hot ones from the
+card), with the same answer bits as the run's tree, and whole exact
+probes are served from the result cache, keyed as the reference keys it.
 """
 from __future__ import annotations
 

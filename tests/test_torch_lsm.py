@@ -36,6 +36,7 @@ from repro_torch.core.windows import WINDOW_MODES, window_engine
 from repro_torch.data import series as PSeries
 from repro_torch.ingest import FrozenBuffer, Snapshot
 from repro_torch.obs import get_registry
+from repro_torch.storage import SegmentStore
 
 N = 3000
 NQ = 6
@@ -414,23 +415,27 @@ def test_window_engine_matches_reference(data, mode):
                   ref.search_exact_batch(q, k=2, window=900))
 
 
-def test_unported_options_raise(data):
+def test_unported_options_raise(data, tmp_path):
+    """Only the sharded engine (queue A item 7) is still unported; the
+    durable options (store, tiers, WAL policy, open, checkpoint) work."""
     with pytest.raises(ValueError):
         window_engine("lsm", CFG, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A item 7"):
         window_engine("btp", CFG, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 4b"):
-        window_engine("btp", CFG, store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item"):
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
         window_engine("btp", CFG, data_dir="/nonexistent", device="cpu")
-    for kw in ({"store": object()}, {"tiers": object()},
-               {"wal_fsync": "never"}):
-        with pytest.raises(NotImplementedError, match="queue A item 4b"):
-            CoconutLSM(CFG, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue A item 4b"):
-        CoconutLSM.open("/nonexistent")
-    with pytest.raises(NotImplementedError, match="queue A item 4b"):
-        _port().checkpoint()
+    with pytest.raises(ValueError, match="fsync"):
+        CoconutLSM(CFG, device="cpu", wal_fsync="sometimes",
+                   store=SegmentStore(str(tmp_path / "bad")))
+    with pytest.raises(FileNotFoundError, match="no committed manifest"):
+        CoconutLSM.open(str(tmp_path / "none"), device="cpu")
+    # without a store, tiers and a WAL policy are ignored, as in the
+    # reference, and a checkpoint is a flush
+    eng = _port(tiers=object(), wal_fsync="never", buffer_capacity=512)
+    assert eng.tiers is None and eng.wal is None
+    eng.insert(data[0][:100])
+    eng.checkpoint()
+    assert eng.ingest_lag() == 0 and eng.n == 100
     with pytest.raises(ValueError):
         CoconutLSM(CFG, mode="lsm", device="cpu")
 

@@ -35,7 +35,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.data", "repro_torch.configs",
            "repro_torch.query.approx", "repro_torch.core.lsm",
            "repro_torch.core.windows", "repro_torch.ingest",
-           "repro_torch.ingest.snapshot", "repro_torch.ingest.compactor"]
+           "repro_torch.ingest.snapshot", "repro_torch.ingest.compactor",
+           "repro_torch.storage.store", "repro_torch.ingest.wal",
+           "repro_torch.core.trie"]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -118,6 +120,37 @@ def test_streaming_and_budgeted_entry_points_default_to_cuda():
         [Partition.from_buffer(buf, SMOKE_INDEX, device="cpu")], x[:2],
         SMOKE_INDEX, budget=0)
     assert st.buffer_rows == 8 and d.shape == (2, 1)
+
+
+def test_durable_engine_defaults_to_cuda(tmp_path):
+    """A durable engine, made over a store or reopened from one, runs on
+    the card by default; without one it raises, and it runs on the CPU
+    only when ``device="cpu"`` is passed."""
+    from repro_torch.core.lsm import CoconutLSM
+    from repro_torch.storage import SegmentStore
+    x = np.zeros((8, SMOKE_INDEX.series_len), np.float32)
+    root = str(tmp_path / "lsm")
+    if torch.cuda.is_available():
+        eng = CoconutLSM(SMOKE_INDEX, store=SegmentStore(root))
+        assert eng.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CoconutLSM(SMOKE_INDEX, store=SegmentStore(root))
+        assert not SegmentStore(root).exists()   # nothing committed
+        eng = CoconutLSM(SMOKE_INDEX, store=SegmentStore(root),
+                         device="cpu")
+        assert eng.device.type == "cpu"
+    eng.insert(x)
+    eng.close()
+    if torch.cuda.is_available():
+        assert CoconutLSM.open(root).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CoconutLSM.open(root)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CoconutLSM.open(root, device="cuda")
+    re = CoconutLSM.open(root, device="cpu")
+    assert re.device.type == "cpu" and re.n == 8
 
 
 def test_device_without_kernel_raises():
