@@ -40,13 +40,27 @@ a concurrent engine that closes without a flush reopens with every row.
 Then budgeted search on the tree (``max_leaves`` 0, 16, 256 and
 unlimited; ``exact_search_budgeted``, whose whole-tree bound is
 ``mindist`` at Q=1), and the Coconut-Trie over the tree's 8,388,608
-sorted keys with the iSAX top-down baseline over 65,536 rows.  Then
+sorted keys with the iSAX top-down baseline over 65,536 rows.  Then the
+sharded engine: the same 7,864,320 walks routed by z-order key range into
+4 btp shards (each insert batch summarized on the card by
+``sax_summarize`` + ``zorder``, its keys routed on the host); after a
+flush the threaded fan-out and the one-launch mesh scan (the shards'
+columns pinned on the card, one ``scan_verify`` launch per sub-shard,
+the selected rows re-verified by the gathered ``batch_euclid``) give the
+streaming phase's answers bit for bit, whole and windowed, and so again
+after a forced rebalance; then a 4-shard store under
+``build/sharded_phase/`` at one eighth of that depth, closed with rows
+only in its write-ahead logs, reopened with the same bits threaded and
+mesh, through a tiered leaf store whose segment retirements drop the
+mesh engine's pinned columns, and a concurrent sharded engine whose
+mid-stream mesh batch is bounded by its buffers.  Then
 every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
 median rows per launch and at Q=1; ``zorder`` also over the tree's
 8,388,608 rows, and at the chunk with the L2 warm and flushed by a read;
-``mindist`` at Q=1 over the tree's 8,388,608 rows)
+``mindist`` at Q=1 over the tree's 8,388,608 rows; ``scan_verify`` also
+over one sub-shard of the mesh launch)
 beside its bound, its twin and, where one exists, a PyTorch library
 call.  Every phase raises on failure.  The
 last lines are the kernels' JSON record, the card's name and power
@@ -101,6 +115,10 @@ BUDGET_BYTE_LEAVES = (16, 256)   # phase 12's max_bytes, in whole-leaf charges
 DURABLE_CHILD = "--durable-child"   # the child's entry, with its store path
 DURABLE_CHILD_S = 600               # the child's time limit
 ISAX_ROWS = 65_536          # phase 14: rows inserted one at a time into iSAX
+# phases 15-16: the sharded engine's shards, each with a quarter of phase
+# 10's buffer, so the stream buffers as many rows in all
+SHARDS = 4
+SHARD_CAPACITY = STREAM_CAPACITY // SHARDS
 
 
 def fail(msg: str) -> None:
@@ -288,6 +306,43 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
                         w=cfg.segments, b=b))
                     same("unpack_mindist vs mindist_batch", md,
                          ops.mindist_batch(q_paas, codes, cfg))
+    # the mesh launch: one scan_verify per sub-shard of [S, cap] stacks
+    # with padding rows and per-shard window cuts, merged by selection,
+    # against the single-device top-k over the flat stack
+    i32_min = np.iinfo(np.int32).min
+    for cfg in (S.SummaryConfig(64, 8, 4), S.SummaryConfig(256, 16, 8)):
+        lower, upper = S.region_bounds(cfg.bits, device=dev)
+        for n_sh, cap in ((1, 300), (4, 2048)):
+            xt = torch.from_numpy(walks(np, rng, n_sh * cap,
+                                        cfg.series_len)).to(dev)
+            _, codes = S.summarize(xt, cfg)
+            ids = torch.from_numpy(rng.permutation(n_sh * cap).astype(
+                np.int32)).to(dev).reshape(n_sh, cap)
+            ids[:, cap - 37:] = -1
+            ts = torch.from_numpy(rng.integers(0, 1000, (n_sh, cap)).astype(
+                np.int32)).to(dev)
+            blocks = (codes.reshape(n_sh, cap, -1),
+                      xt.reshape(n_sh, cap, -1), ids, ts)
+            for nq in (1, 64):
+                qt = torch.from_numpy(walks(np, rng, nq,
+                                            cfg.series_len)).to(dev)
+                q_paas = S.paa(qt, cfg.segments)
+                ed = ops.batch_euclid_multi(qt, xt)
+                bound = ed.median(dim=1).values
+                bound[0] = float("inf")
+                for cut in (None, torch.from_numpy(rng.integers(
+                        0, 500, n_sh).astype(np.int32)).to(dev)):
+                    for k in (1, 10):
+                        got = launched(ops.mesh_scan(
+                            qt, q_paas, *([b_] for b_ in blocks), cut,
+                            bound, cfg, k=k))
+                        tm = cut if cut is not None else torch.full(
+                            (n_sh,), i32_min, dtype=torch.int32, device=dev)
+                        want = ref.mesh_scan_ref(
+                            qt, q_paas, *blocks, tm, bound, lower, upper,
+                            scale=cfg.series_len / cfg.segments, k=k)
+                        for g, w_ in zip(got, want):
+                            same("mesh_scan", g, w_)
     return err
 
 
@@ -1409,6 +1464,305 @@ def trie_phase(torch, np, tree) -> dict:
     return {"trie": dict(loader.LAUNCHES)}
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the sharded Coconut-LSM and the one-launch mesh scan
+# ---------------------------------------------------------------------------
+
+def counter(name: str):
+    from repro_torch.obs import get_registry
+    return get_registry().counter(name).value
+
+
+def sharded_phase(torch, np, x, queries, stream) -> tuple:
+    """Phase 15: phase 10's stream through a 4-shard btp engine
+    (key-range router, a per-shard buffer of a quarter of phase 10's);
+    after ``flush()`` the threaded fan-out gives phase 10's bits whole and
+    windowed, equal to brute force; ``scan_mode="mesh"`` gives the same
+    bits with no fallback and one ``scan_verify`` launch per sub-shard;
+    ``rebalance(force=True)`` keeps every bit.  Returns the launches and
+    one sub-shard's pinned columns (the ``scan_verify`` mesh-shape row)."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core import summarization as S
+    from repro_torch.core.windows import window_engine
+    from repro_torch.kernels import loader, ops
+    cfg, leaf = INDEX, LEAF_SIZE
+    n, L, dev = STREAM_ROWS, cfg.series_len, x.device
+    launches = {}
+    run_row = L * 4 + cfg.n_words * 8 + cfg.segments * 5 + 3 * 8
+    pin_row = L * 4 + cfg.segments + 2 * 4
+    print(f"sharded: reckoned device memory on top of phase 3's walks and "
+          f"tree ({(N_ROWS * L * 4 + N_ROWS * run_row) / 2**30:.1f} GiB): "
+          f"runs {n * run_row / 2**30:.1f} GiB, the pinned stack "
+          f"{n * pin_row / 2**30:.1f} GiB and its padding to the largest "
+          f"shard, the largest shard's merge")
+    torch.cuda.reset_peak_memory_stats()
+    x_host = x[:n].cpu().numpy()
+    eng = window_engine("btp", cfg, buffer_capacity=SHARD_CAPACITY,
+                        leaf_size=leaf, shards=SHARDS)
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for s in range(0, n, STREAM_BATCH):
+        eng.insert(x_host[s:s + STREAM_BATCH])
+    eng.flush()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    launches["ingest"] = dict(loader.LAUNCHES)
+    del x_host
+    for name in ("sax_summarize", "zorder"):
+        check(launches["ingest"].get(name, 0) > 0,
+              f"sharded ingest launched no {name}: {launches['ingest']}")
+    check(eng.n == n and sum(eng.shard_sizes()) == n,
+          f"sharded: {eng.n} rows of {n}, shards {eng.shard_sizes()}")
+    eng.check_invariants()
+    print(f"sharded ingest: {n} rows in {n // STREAM_BATCH} routed batches "
+          f"and a flush in {ingest_s:.3f} s ({n / ingest_s:.0f} rows/s; "
+          f"phase 10 {n / stream['ingest_s']:.0f}); shard sizes "
+          f"{eng.shard_sizes()}, runs per shard "
+          f"{[[r.n for r in s.runs] for s in eng._shard_list()]}; launches "
+          f"{launches['ingest']}")
+
+    def batch(mode, window=None):
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        d, o, info = eng.search_exact_batch(queries, k=K, window=window,
+                                            scan_mode=mode)
+        torch.cuda.synchronize()
+        return d, o, info, time.perf_counter() - t0, dict(loader.LAUNCHES)
+
+    def threaded_and_mesh(tag):
+        """Whole and windowed batches, threaded then mesh: phase 10's bits
+        and one scan_verify launch per sub-shard, no fallback."""
+        out = {}
+        for window, want in ((None, stream["whole"]),
+                             (STREAM_WINDOW, stream["window"])):
+            d, o, info, s_t, l_t = batch("threaded", window)
+            stable_bits(np, (d, o), want, f"sharded {tag} threaded "
+                        f"window={window} vs phase 10")
+            for name in ("mindist_batch", "batch_euclid"):
+                check(l_t.get(name, 0) > 0, f"sharded {tag} threaded "
+                      f"launched no {name}: {l_t}")
+            fb0 = counter("query.mesh_fallbacks_total")
+            dm, om, im, s_m, l_m = batch("mesh", window)
+            check(im.get("scan_mode") == "mesh"
+                  and counter("query.mesh_fallbacks_total") == fb0,
+                  f"sharded {tag} mesh window={window} fell back")
+            stable_bits(np, (dm, om), (d, o), f"sharded {tag} mesh "
+                        f"window={window} vs threaded")
+            check(l_m.get("scan_verify", 0) == SHARDS
+                  and l_m.get("batch_euclid_gather", 0) > 0,
+                  f"sharded {tag} mesh launches {l_m}")
+            key = "whole" if window is None else "window"
+            launches[f"{tag}_threaded_{key}"] = l_t
+            launches[f"{tag}_mesh_{key}"] = l_m
+            out[key] = (s_t, s_m)
+            print(f"sharded {tag} window={window}: threaded {s_t:.3f} s "
+                  f"(shards touched {info['shards_touched']}, pruned "
+                  f"{info['shards_pruned']}, leaves scanned "
+                  f"{info['leaves_scanned']}), mesh {s_m:.3f} s "
+                  f"(candidates {im['candidates']}); both phase 10's bits; "
+                  f"launches threaded {l_t}, mesh {l_m}")
+        return out
+
+    # the first mesh batch pins: time the pin on its own
+    meng = eng._mesh_engine_get()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pinned = meng.pin(eng._snapshots()[0])
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    check(pinned is not None, "sharded: the snapshot could not be pinned")
+    lay = pinned.layout
+    print(f"sharded pin: {lay.n_shards} shards on {lay.n_devices} device(s), "
+          f"cap {lay.cap} rows (padding {lay.pad_frac:.4f}), "
+          f"{pinned.nbytes / 2**30:.2f} GiB by device-to-device copies in "
+          f"{pin_s:.3f} s")
+    # the launch alone (4 scan_verify and the selection, no bound after
+    # the flush), CUDA events: these launches are not a path's
+    q_paas = S.paa(queries, cfg.segments)
+    unbounded = torch.full((queries.shape[0],), float("inf"), device=dev)
+
+    def launch():
+        return ops.mesh_scan(queries, q_paas, pinned.codes, pinned.raw,
+                             pinned.ids, pinned.ts, None, unbounded, cfg,
+                             k=K)
+    launch_ms = Timer(torch).ms(launch, reps=3, cold=False)
+    print(f"sharded mesh launch: {launch_ms:.3f} ms of device time (CUDA "
+          f"events, median of 3, {lay.n_shards} scan_verify launches of "
+          f"{lay.cap} rows and the selection)")
+    ties = agrees_with_brute(np, brute_rows(
+        torch, x[:n], torch.arange(n, device=dev), queries, K),
+        stream["whole"], "sharded: phase 10's answers")
+    times = threaded_and_mesh("flushed")
+    print(f"sharded: phase 10's answers equal brute force over {n} rows "
+          f"({ties} tie swaps)")
+    for mode in ("threaded", "mesh"):
+        wall = times["whole"][mode == "mesh"]
+        print(f"sharded {mode} device profile (torch.profiler, one whole "
+              f"batch):")
+        busy, prof = device_profile(
+            torch, lambda: eng.search_exact_batch(queries, k=K,
+                                                  scan_mode=mode))
+        key = "scan_verify" if mode == "mesh" else "MindistBatch"
+        if any(key in r[2] for r in prof):
+            print(f"sharded {mode} device busy: {busy:.3f} ms of "
+                  f"{wall * 1e3:.1f} ms wall "
+                  f"({100 * busy / (wall * 1e3):.2f}%)")
+        else:
+            print(f"sharded {mode} device busy: not measured (the "
+                  f"profiler recorded none of the batch's {key} kernels)")
+        if mode == "mesh":
+            kernel_total(prof, "scan_verify", "mesh launch scan_verify "
+                         "kernels")
+    print(f"sharded memory: device peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    # one sub-shard's pinned columns, for the scan_verify mesh-shape row
+    sub = {"codes": pinned.codes[0][0].clone(),
+           "raw": pinned.raw[0][0].clone(),
+           "dead": (pinned.ids[0][0] < 0).clone(),
+           "rows": pinned.rows[0], "cap": lay.cap}
+    del pinned
+
+    t0 = time.perf_counter()
+    moved = eng.rebalance(force=True)
+    torch.cuda.synchronize()
+    reb_s = time.perf_counter() - t0
+    check(moved, "sharded: rebalance(force=True) did not migrate")
+    check(eng.n == n, f"sharded: {eng.n} rows after the rebalance")
+    print(f"rebalance: migrated under re-estimated boundaries in "
+          f"{reb_s:.3f} s (every run's {n} rows read back to the host, "
+          f"re-routed, re-flushed); shard sizes {eng.shard_sizes()}")
+    threaded_and_mesh("rebalanced")
+    eng.close()
+    del eng, meng
+    return launches, sub
+
+
+def sharded_store_phase(torch, np, x, queries, modes_answer) -> dict:
+    """Phase 16: phase 11's depth into a 4-shard engine over a data
+    directory (WAL fsync "always"), closed with rows only in the WALs:
+    ``ShardedCoconutLSM.open`` answers phase 11's bits threaded and mesh;
+    reopened with tiers, the same bits through ``unpack_mindist`` and the
+    mesh engine dropping its stacks when a flush retires a segment; a
+    concurrent durable sharded engine answers a mesh batch mid-stream,
+    seeded by its buffers, as threaded does.  The directory goes at the
+    end, on failure too."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.distributed import ShardedCoconutLSM
+    from repro_torch.kernels import loader
+    from repro_torch.storage import TieredLeafStore
+    cfg, leaf = INDEX, LEAF_SIZE
+    n = STREAM_ROWS // MODES_DEPTH
+    cap = SHARD_CAPACITY // MODES_DEPTH
+    size = STREAM_BATCH // MODES_DEPTH
+    launches = {}
+    work = ROOT / "build" / "sharded_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        x_host = x[:n].cpu().numpy()
+        root = str(work / "store")
+        eng = ShardedCoconutLSM(cfg, shards=SHARDS, buffer_capacity=cap,
+                                leaf_size=leaf, data_dir=root,
+                                wal_fsync="always")
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for s in range(0, n, size):
+            eng.insert(x_host[s:s + size])
+        ingest_s = time.perf_counter() - t0
+        buffered = eng.ingest_lag()
+        eng.close()                       # the buffered rows: WAL only
+        launches["ingest"] = dict(loader.LAUNCHES)
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        eng = ShardedCoconutLSM.open(root)
+        open_s = time.perf_counter() - t0
+        check(eng.n == n, f"sharded store: reopened {eng.n} rows of {n}")
+        eng.flush()
+        for mode in ("threaded", "mesh"):
+            d, o, info = eng.search_exact_batch(queries, k=K,
+                                                scan_mode=mode)
+            check(info.get("scan_mode", "threaded") == mode,
+                  f"sharded store: {mode} batch ran {info.get('scan_mode')}")
+            stable_bits(np, (d, o), modes_answer,
+                        f"sharded store: reopened {mode} vs phase 11")
+        dw, ow, _ = eng.search_exact_batch(queries, k=K, window=cap)
+        stable_bits(np, eng.search_exact_batch(
+            queries, k=K, window=cap, scan_mode="mesh")[:2], (dw, ow),
+            "sharded store: windowed mesh vs threaded")
+        launches["reopen"] = dict(loader.LAUNCHES)
+        eng.close()
+        print(f"sharded store: {n} rows in {ingest_s:.3f} s "
+              f"({n / ingest_s:.0f} rows/s, WAL fsync always), closed with "
+              f"{buffered} rows only in the WALs; open {open_s:.3f} s with "
+              f"every row; threaded and mesh give phase 11's bits, "
+              f"windowed too; launches {launches['reopen']}")
+
+        tiers = TieredLeafStore(1 << 30, device_capacity_bytes=1 << 28)
+        loader.LAUNCHES.clear()
+        eng = ShardedCoconutLSM.open(root, tiers=tiers)
+        d, o, _ = eng.search_exact_batch(queries, k=K)
+        stable_bits(np, (d, o), modes_answer, "sharded store: tiers")
+        check(loader.LAUNCHES.get("unpack_mindist", 0) > 0,
+              f"sharded store: tiers launched no unpack_mindist: "
+              f"{dict(loader.LAUNCHES)}")
+        m = eng.search_exact_batch(queries, k=K, scan_mode="mesh")
+        stable_bits(np, m[:2], modes_answer, "sharded store: tiers mesh")
+        inv0 = counter("query.mesh_invalidations_total")
+        check(eng._mesh_engine.pinned is not None,
+              "sharded store: nothing pinned")
+        extra = x[n:n + 2 * size].cpu().numpy()
+        for s in (0, size):               # the second flush merges
+            eng.insert(extra[s:s + size])
+            eng.flush()
+        check(counter("query.mesh_invalidations_total") > inv0
+              and eng._mesh_engine.pinned is None,
+              "sharded store: no invalidation reached the mesh engine")
+        stable_bits(np, eng.search_exact_batch(queries, k=K,
+                                               scan_mode="mesh")[:2],
+                    eng.search_exact_batch(queries, k=K,
+                                           scan_mode="threaded")[:2],
+                    "sharded store: repinned mesh vs threaded")
+        launches["tiers"] = dict(loader.LAUNCHES)
+        eng.close()
+        print(f"sharded store tiers: phase 11's bits through unpack_mindist "
+              f"({launches['tiers'].get('unpack_mindist', 0)} launches); two "
+              f"inserts and flushes dropped the pinned stacks "
+              f"(query.mesh_invalidations_total "
+              f"{counter('query.mesh_invalidations_total') - inv0}); "
+              f"repinned mesh == threaded; {tiers.stats()}")
+
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        seen = 0
+        with ShardedCoconutLSM(cfg, shards=SHARDS, buffer_capacity=cap,
+                               leaf_size=leaf, data_dir=str(work / "conc"),
+                               concurrent=True, scan_mode="mesh") as eng:
+            for s in range(0, n, size):
+                eng.insert(x_host[s:s + size])
+                if s == n // size // 2 * size:     # mid-stream
+                    m = eng.search_exact_batch(queries, k=K)
+                    t = eng.search_exact_batch(queries, k=K,
+                                               scan_mode="threaded")
+                    check(m[2]["scan_mode"] == "mesh"
+                          and m[2]["buffer_rows"] > 0,
+                          f"concurrent sharded: mesh info {m[2]}")
+                    stable_bits(np, m[:2], t[:2],
+                                "concurrent sharded: mesh vs threaded")
+                    seen = m[2]["buffer_rows"]
+            eng.flush()
+            stable_bits(np, eng.search_exact_batch(queries, k=K)[:2],
+                        modes_answer, "concurrent sharded vs phase 11")
+        conc_s = time.perf_counter() - t0
+        launches["concurrent"] = dict(loader.LAUNCHES)
+        print(f"sharded concurrent: {n} rows in {conc_s:.3f} s; mid-stream "
+              f"mesh batch seeded by {seen} buffered rows == threaded; "
+              f"after the flush phase 11's bits; launches "
+              f"{launches['concurrent']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1636,9 +1990,21 @@ def main() -> int:
     # -- 13: the durable engine (run while phase 3's walks are on the card) ---
     t0 = time.perf_counter()
     durable_l = durable_phase(torch, np, x, queries, stream_out, modes_answer)
-    del x
     torch.cuda.empty_cache()
     print(f"durable phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 15: the sharded engine, threaded and mesh, and a rebalance -------------
+    t0 = time.perf_counter()
+    sharded_l, mesh_sub = sharded_phase(torch, np, x, queries, stream_out)
+    torch.cuda.empty_cache()
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 16: the sharded store: reopen, tiers, a concurrent engine --------------
+    t0 = time.perf_counter()
+    store_l = sharded_store_phase(torch, np, x, queries, modes_answer)
+    del x
+    torch.cuda.empty_cache()
+    print(f"sharded store phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 12: budgeted search on the tree -----------------------------------------
     t0 = time.perf_counter()
@@ -1681,6 +2047,16 @@ def main() -> int:
     sv_t = ops.scan_verify(q, q_paas, codes_leaf, raw_leaf, bound_t, cfg,
                            k=K)
     live_pairs_t, union_t = int(sv_t[2].sum()), int(sv_t[3])
+    # one sub-shard of the mesh launch: after the flush no buffer bounds
+    # the launch, so every row that is not padding is live for every query
+    mc, mr, mdead = mesh_sub["codes"], mesh_sub["raw"], mesh_sub["dead"]
+    mdead_i32 = mdead.to(torch.int32)
+    mcap, mrows = mesh_sub["cap"], mesh_sub["rows"]
+    unbounded = torch.full((N_QUERIES,), float("inf"), device=dev)
+    sv_mesh = ops.scan_verify(q, q_paas, mc, mr, unbounded, cfg, k=K,
+                              dead=mdead)
+    check(int(sv_mesh[3]) == mrows, f"scan_verify mesh shape: "
+          f"{int(sv_mesh[3])} live rows of {mrows}")
     # queries with a live pair: only their raw rows need to be read
     live_q, live_q_t = int((sv[2] > 0).sum()), int((sv_t[2] > 0).sum())
     per_q = sv[2].cpu().numpy()
@@ -1798,6 +2174,10 @@ def main() -> int:
                 sv_t, ref.scan_verify_ref(
                     q, q_paas, codes_leaf, raw_leaf, lower, upper, bound_t,
                     no_dead, scale=scale, k=K))),
+            *(("scan_verify_mesh", g, w_) for g, w_ in zip(
+                sv_mesh, ref.scan_verify_ref(
+                    q, q_paas, mc, mr, lower, upper, unbounded, mdead_i32,
+                    scale=scale, k=K))),
             ("sax_summarize", ops.sax_summarize(chunk, cfg)[0],
              ref.sax_summarize_ref(chunk, bps, segments=w)[0]),
             ("zorder", ops.zorder(c_codes, cfg),
@@ -1905,6 +2285,27 @@ def main() -> int:
                 no_dead, scale=scale, k=K),
             library=None,
             bound=sv_bound(union_t, live_q_t, live_pairs_t)),
+        "scan_verify_mesh": dict(
+            source="src/repro_torch/kernels/csrc/scan_verify.cu",
+            replaces="src/repro/kernels/scan_verify.py:130",
+            shape=f"Q={nq} x N={mcap} rows (one sub-shard of phase 15's "
+                  f"mesh launch: {mrows} rows and {mcap - mrows} padding), "
+                  f"k={K}, no bound (no buffer after the flush): every "
+                  f"(query, row) pair verified",
+            launches_of="scan_verify",
+            fn=lambda: ops.scan_verify(q, q_paas, mc, mr, unbounded, cfg,
+                                       k=K, dead=mdead),
+            plain=lambda: ref.scan_verify_ref(
+                q, q_paas, mc, mr, lower, upper, unbounded, mdead_i32,
+                scale=scale, k=K),
+            library=None,
+            # the codes and dead flags of the sub-shard, its live rows and
+            # the queries once each, the outputs; per live pair the bound
+            # (7w) and the ED (3L - 1)
+            bound=bound_ms(mcap * (w + 1) + mrows * L * 4
+                           + nq * (L + w + 2) * 4 + 2 * card * 4
+                           + nq * K * 8 + 4,
+                           nq * mrows * (7 * w + 3 * L - 1))),
         "fused_build": dict(
             source="src/repro_torch/kernels/csrc/fused_build.cu",
             replaces="src/repro/kernels/fused_build.py:57",
@@ -1970,7 +2371,8 @@ def main() -> int:
     for phase in (build_launches, eager_launches, fused_launches,
                   *seg_out["launches"].values(), *stream_l.values(),
                   *modes_l.values(), *durable_l.values(),
-                  *budget_l.values(), *trie_l.values()):
+                  *budget_l.values(), *trie_l.values(),
+                  *sharded_l.values(), *store_l.values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
     launches["unpack_mindist_hot"] = \

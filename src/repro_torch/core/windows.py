@@ -23,9 +23,8 @@ leaves; PP disables the temporal drop and post-filters everything.
     merging bounds partitions at O(log N) while windows skip old runs.
 
 The engine's runs live on the card unless ``device="cpu"``.  A store
-(``store=``) makes the engine durable (segments + WAL).  The sharded
-engine (``shards > 1``, persisted through ``data_dir=``) is ROADMAP queue
-A item 7; both options raise :class:`NotImplementedError`.
+(``store=``) makes the engine durable (segments + WAL).  ``shards > 1``
+gives the key-range-sharded engine, persisted through ``data_dir=``.
 """
 from __future__ import annotations
 
@@ -59,17 +58,25 @@ def window_engine(mode: str, cfg: SummaryConfig, *,
     compactor so window queries run against immutable snapshots while
     ingest continues.  Concurrent engines should be closed (or used as a
     context manager) so the compactor thread shuts down deterministically.
+
+    ``shards > 1`` returns a key-range-partitioned
+    :class:`~repro_torch.distributed.sharded_lsm.ShardedCoconutLSM` with
+    the same windowing mode on every shard; persistence then goes through
+    ``data_dir`` (a ``ShardDirectory`` root) instead of ``store``, and
+    ``data_dir`` is ignored at ``shards=1``.  ``device`` passes through.
     """
     if mode not in WINDOW_MODES:
         raise ValueError(f"mode must be one of {WINDOW_MODES}, got {mode!r}")
     if shards > 1:
-        raise NotImplementedError(
-            "sharded window engines come with the sharded LSM, ROADMAP "
-            "queue A item 7")
-    if data_dir is not None:
-        raise NotImplementedError(
-            "data_dir= persists a sharded engine, which comes with the "
-            "sharded LSM, ROADMAP queue A item 7")
+        if store is not None:
+            raise ValueError(
+                "sharded engines persist via data_dir=, not store=")
+        from ..distributed.sharded_lsm import ShardedCoconutLSM
+        return ShardedCoconutLSM(
+            cfg, shards=shards, buffer_capacity=buffer_capacity,
+            leaf_size=leaf_size, mode=mode, materialized=materialized,
+            io=io, data_dir=data_dir, concurrent=concurrent,
+            wal_fsync=wal_fsync, max_debt=max_debt, device=device)
     return CoconutLSM(cfg, buffer_capacity=buffer_capacity,
                       leaf_size=leaf_size, mode=mode,
                       materialized=materialized, io=io, store=store,

@@ -8,7 +8,7 @@ failed launch to a twin.  These are the entry points the index code uses.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -16,6 +16,7 @@ from ..core import summarization as S
 from .batch_euclid import batch_euclid as _euclid_cross
 from .batch_euclid import batch_euclid_gather as _euclid_gather
 from .fused_build import fused_build as _fused_build
+from .mesh_scan import mesh_scan_launch as _mesh_scan
 from .mindist_batch import mindist_batch as _mindist_batch
 from .sax_summarize import sax_summarize as _sax_summarize
 from .scan_verify import scan_verify as _scan_verify
@@ -23,7 +24,7 @@ from .unpack_mindist import unpack_mindist as _unpack_mindist
 from .zorder import zorder as _zorder
 
 __all__ = ["mindist", "mindist_batch", "mindist_batch_packed",
-           "batch_euclid", "batch_euclid_multi", "scan_verify",
+           "batch_euclid", "batch_euclid_multi", "scan_verify", "mesh_scan",
            "sax_summarize", "zorder", "summarize_and_key"]
 
 
@@ -109,6 +110,29 @@ def scan_verify(queries: torch.Tensor, q_paas: torch.Tensor,
                         codes.to(torch.uint8).contiguous(), _f32(raw),
                         lower, upper, _f32(bound), dead,
                         scale=cfg.series_len / cfg.segments, k=k)
+
+
+def mesh_scan(queries: torch.Tensor, q_paas: torch.Tensor,
+              codes: Sequence[torch.Tensor], raw: Sequence[torch.Tensor],
+              ids: Sequence[torch.Tensor], ts: Sequence[torch.Tensor],
+              ts_min: Optional[torch.Tensor], bound: torch.Tensor,
+              cfg: S.SummaryConfig, *, k: int = 1):
+    """Whole-batch device-resident sharded scan over the pinned
+    ``[S, cap, ...]`` shard stacks, given as one ``[S/D, cap, ...]`` block
+    per mesh device (codes uint8, raw f32, ids int32 with -1 padding, ts
+    int32).  On a CUDA device each sub-shard is one ``scan_verify``
+    launch; on the CPU the plain per-device body runs.  The per-device
+    lists are merged by selection on the first device.
+
+    ``ts_min`` is a per-shard ``[S]`` int32 visibility cut or None,
+    ``bound`` ``[Q]`` the strict per-query best-so-far.  Returns (dists
+    ``[Q, k]``, global ids ``[Q, k]`` int32 with -1 padding, counts
+    ``[S, Q]`` int32).  Oracle: ``ref.mesh_scan_ref``.
+    """
+    tables = [_tables(cfg.bits, c.device)[:2] for c in codes]
+    return _mesh_scan(_f32(queries), _f32(q_paas), codes, raw, ids, ts,
+                      ts_min, _f32(bound), tables,
+                      scale=cfg.series_len / cfg.segments, k=k)
 
 
 def sax_summarize(x: torch.Tensor, cfg: S.SummaryConfig):

@@ -29,9 +29,10 @@ from ..core import keys as K
 from ..core import summarization as S
 
 __all__ = ["ED_LANES", "ed_pairs", "mindist_batch_ref", "batch_euclid_ref",
-           "batch_euclid_gather_ref", "scan_verify_ref", "fused_build_ref",
-           "sax_summarize_ref", "zorder_ref", "unpack_codes_ref",
-           "mindist_batch_packed_ref"]
+           "batch_euclid_blocked_ref", "batch_euclid_gather_ref",
+           "scan_verify_ref", "local_scan_topk", "mesh_scan_ref",
+           "fused_build_ref", "sax_summarize_ref", "zorder_ref",
+           "unpack_codes_ref", "mindist_batch_packed_ref"]
 
 ED_LANES = 32
 # elements per [Q, rows, L] or [Q, rows, w] intermediate: rows are taken in
@@ -113,29 +114,83 @@ def batch_euclid_gather_ref(queries: torch.Tensor, series: torch.Tensor,
     return out
 
 
+# The reference blocks its plain cross form in fixed row blocks so that a
+# row's distance bits do not depend on how many rows share the call.  Here
+# the lane order already makes them independent of the batch, so the
+# blocked form is the cross form itself.
+batch_euclid_blocked_ref = batch_euclid_ref
+
+
+def local_scan_topk(queries: torch.Tensor, q_paas: torch.Tensor,
+                    codes: torch.Tensor, raw: torch.Tensor,
+                    dead: torch.Tensor, bound: torch.Tensor,
+                    lower: torch.Tensor, upper: torch.Tensor, *,
+                    scale: float, k: int):
+    """One device's scan: the lower bound, the live mask ``md < bound[q]``
+    on rows not ``dead``, ED of live pairs, and each query's top-k.
+
+    Returns (dists ``[Q, k]`` f32 inf-padded, row indices ``[Q, k]`` int32
+    with -1 where the dist is inf, live ``[Q, N]`` bool).  Ties go to the
+    lowest row index (a stable sort, then the first k)."""
+    md = mindist_batch_ref(q_paas, codes, lower, upper, scale)
+    live = (md < bound[:, None]) & (dead == 0)[None, :]
+    ed = torch.where(live, batch_euclid_ref(queries, raw),
+                     torch.tensor(float("inf"), device=raw.device))
+    if ed.shape[1] < k:
+        ed = torch.nn.functional.pad(ed, (0, k - ed.shape[1]),
+                                     value=float("inf"))
+    sd, si = torch.sort(ed, dim=1, stable=True)
+    d = sd[:, :k].contiguous()
+    idx = torch.where(torch.isfinite(d), si[:, :k].to(torch.int32),
+                      torch.tensor(-1, dtype=torch.int32, device=raw.device))
+    return d, idx, live
+
+
 def scan_verify_ref(queries: torch.Tensor, q_paas: torch.Tensor,
                     codes: torch.Tensor, raw: torch.Tensor,
                     lower: torch.Tensor, upper: torch.Tensor,
                     bound: torch.Tensor, dead: torch.Tensor, *,
                     scale: float, k: int):
-    """Fused scan+verify: the lower bound, the live mask ``md < bound[q]``
-    on rows not ``dead``, ED of live pairs, and each query's top-k.
+    """Fused scan+verify: :func:`local_scan_topk` with the live mask
+    reduced to counts.
 
     Returns (dists ``[Q, k]`` f32 inf-padded, row indices ``[Q, k]``
     int32 with -1 where the dist is inf, live counts ``[Q]`` int32, union
-    int32 — rows live for any query).  Ties go to the lowest row index
-    (stable sort, then the first k)."""
-    md = mindist_batch_ref(q_paas, codes, lower, upper, scale)
-    live = (md < bound[:, None]) & (dead == 0)[None, :]
-    ed = torch.where(live, batch_euclid_ref(queries, raw),
-                     torch.tensor(float("inf"), device=raw.device))
-    sd, si = torch.sort(ed, dim=1, stable=True)
-    d = sd[:, :k].contiguous()
-    idx = torch.where(torch.isfinite(d), si[:, :k].to(torch.int32),
-                      torch.tensor(-1, dtype=torch.int32, device=raw.device))
+    int32 — rows live for any query)."""
+    d, idx, live = local_scan_topk(queries, q_paas, codes, raw, dead, bound,
+                                   lower, upper, scale=scale, k=k)
     counts = live.sum(dim=1).to(torch.int32)
     union = live.any(dim=0).sum().to(torch.int32)
     return d, idx, counts, union
+
+
+def mesh_scan_ref(queries: torch.Tensor, q_paas: torch.Tensor,
+                  codes: torch.Tensor, raw: torch.Tensor,
+                  ids: torch.Tensor, ts: torch.Tensor, ts_min: torch.Tensor,
+                  bound: torch.Tensor, lower: torch.Tensor,
+                  upper: torch.Tensor, *, scale: float, k: int):
+    """Oracle of the device-resident sharded scan: the global top-k over
+    the stacked shard columns, as if every shard lived on one device.
+
+    queries ``[Q, L]``, q_paas ``[Q, w]``, codes ``[S, cap, w]``, raw
+    ``[S, cap, L]``, ids ``[S, cap]`` int32 (-1 marks padding rows), ts
+    ``[S, cap]`` int32, ts_min ``[S]`` int32 per-shard visibility cut
+    (INT32_MIN disables it), bound ``[Q]`` per-query strict best-so-far.
+    Returns (dists ``[Q, k]`` inf-padded, global ids ``[Q, k]`` int32 with
+    -1 padding, counts ``[S, Q]`` int32 — rows verified per shard per
+    query).  Ties go to the lowest (shard, row)."""
+    s, cap = ids.shape
+    dead = (ids < 0) | (ts < ts_min[:, None])
+    d, idx, live = local_scan_topk(
+        queries, q_paas, codes.reshape(s * cap, codes.shape[-1]),
+        raw.reshape(s * cap, raw.shape[-1]), dead.reshape(s * cap), bound,
+        lower, upper, scale=scale, k=k)
+    ids_f = ids.reshape(s * cap)
+    out_ids = torch.where(idx >= 0, ids_f[idx.clamp_min(0).long()],
+                          torch.tensor(-1, dtype=ids.dtype,
+                                       device=ids.device))
+    counts = live.reshape(-1, s, cap).sum(dim=2).T.to(torch.int32)
+    return d, out_ids, counts.contiguous()
 
 
 def sax_summarize_ref(x: torch.Tensor, bps: torch.Tensor, *,

@@ -37,7 +37,7 @@ from ..obs import span as _span
 from .partition import Partition
 
 __all__ = ["ScanPlan", "ScanEntry", "build_plan", "leaf_envelopes",
-           "envelope_mindist_sq"]
+           "envelope_mindist_sq", "DeviceLayout", "build_device_layout"]
 
 
 def _unpack_key_bits(keys: np.ndarray, used_bits: int) -> np.ndarray:
@@ -133,6 +133,51 @@ class ScanPlan:
     @property
     def n_partitions(self) -> int:
         return len(self.entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLayout:
+    """The device-resident scan's pinning plan: how S shards' stacked
+    ``[S, cap, ...]`` columns map onto the scan mesh's devices.
+
+    ``n_devices`` always divides ``n_shards`` (each device owns
+    ``shards_per_device`` contiguous sub-shards of the stack) and
+    ``cap`` is the bucket-rounded row capacity shared by every shard
+    slot — rounding keeps the launch shape stable across small ingest
+    deltas.
+    """
+    n_shards: int
+    n_devices: int
+    shards_per_device: int
+    cap: int
+    row_counts: tuple
+
+    @property
+    def padded_rows(self) -> int:
+        return self.n_shards * self.cap
+
+    @property
+    def pad_frac(self) -> float:
+        total = sum(self.row_counts)
+        return 1.0 - (total / self.padded_rows) if self.padded_rows else 0.0
+
+
+def build_device_layout(row_counts: Sequence[int], *, n_devices: int,
+                        bucket: int = 2048) -> DeviceLayout:
+    """Plan the pinned stack for per-shard ``row_counts`` over at most
+    ``n_devices`` devices: D = largest divisor of S that fits, cap =
+    max shard rows rounded up to ``bucket`` (min one bucket so empty
+    shards still occupy a well-formed slot)."""
+    counts = tuple(int(r) for r in row_counts)
+    s = len(counts)
+    if s < 1:
+        raise ValueError("need at least one shard")
+    d = max(x for x in range(1, min(s, max(1, int(n_devices))) + 1)
+            if s % x == 0)
+    cap = max(max(counts), 1)
+    cap = -(-cap // bucket) * bucket
+    return DeviceLayout(n_shards=s, n_devices=d, shards_per_device=s // d,
+                        cap=cap, row_counts=counts)
 
 
 def build_plan(partitions: Sequence[Partition], q_paas: np.ndarray, *,

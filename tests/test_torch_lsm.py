@@ -416,14 +416,23 @@ def test_window_engine_matches_reference(data, mode):
 
 
 def test_unported_options_raise(data, tmp_path):
-    """Only the sharded engine (queue A item 7) is still unported; the
-    durable options (store, tiers, WAL policy, open, checkpoint) work."""
+    """No window-engine option is unported any more: the sharded engine
+    comes with ``shards > 1`` (persisted through ``data_dir=``, never
+    ``store=``), ``data_dir=`` is ignored at one shard as in the
+    reference, and the durable options (store, tiers, WAL policy, open,
+    checkpoint) work; what the reference refuses raises."""
+    from repro_torch.distributed import ShardedCoconutLSM
     with pytest.raises(ValueError):
         window_engine("lsm", CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        window_engine("btp", CFG, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        window_engine("btp", CFG, data_dir="/nonexistent", device="cpu")
+    assert isinstance(window_engine("btp", CFG, shards=2, device="cpu"),
+                      ShardedCoconutLSM)
+    with pytest.raises(ValueError, match="data_dir"):
+        window_engine("btp", CFG, shards=2, device="cpu",
+                      store=SegmentStore(str(tmp_path / "s")))
+    one = window_engine("btp", CFG, data_dir=str(tmp_path / "ignored"),
+                        device="cpu")
+    assert isinstance(one, CoconutLSM) and one.store is None
+    assert not (tmp_path / "ignored").exists()
     with pytest.raises(ValueError, match="fsync"):
         CoconutLSM(CFG, device="cpu", wal_fsync="sometimes",
                    store=SegmentStore(str(tmp_path / "bad")))

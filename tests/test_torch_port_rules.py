@@ -37,7 +37,12 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.core.windows", "repro_torch.ingest",
            "repro_torch.ingest.snapshot", "repro_torch.ingest.compactor",
            "repro_torch.storage.store", "repro_torch.ingest.wal",
-           "repro_torch.core.trie"]
+           "repro_torch.core.trie", "repro_torch.distributed",
+           "repro_torch.distributed.router",
+           "repro_torch.distributed.samplesort",
+           "repro_torch.distributed.sharded_lsm", "repro_torch.launch",
+           "repro_torch.launch.mesh", "repro_torch.kernels.mesh_scan",
+           "repro_torch.query.mesh"]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -99,6 +104,7 @@ def test_streaming_and_budgeted_entry_points_default_to_cuda():
     run on the card by default; without one they raise."""
     from repro_torch.core.lsm import CoconutLSM
     from repro_torch.core.windows import window_engine
+    from repro_torch.distributed import ShardedCoconutLSM
     from repro_torch.ingest import FrozenBuffer
     from repro_torch.query import Partition, approx_knn
     x = np.zeros((8, SMOKE_INDEX.series_len), np.float32)
@@ -106,12 +112,21 @@ def test_streaming_and_budgeted_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert CoconutLSM(SMOKE_INDEX).device.type == "cuda"
         assert window_engine("tp", SMOKE_INDEX).device.type == "cuda"
+        sharded = window_engine("btp", SMOKE_INDEX, shards=4)
+        assert sharded.device.type == "cuda"
+        assert all(s.device.type == "cuda" for s in sharded._shard_list())
         assert Partition.from_buffer(buf, SMOKE_INDEX).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         CoconutLSM(SMOKE_INDEX)
     with pytest.raises(RuntimeError, match="CUDA"):
         window_engine("btp", SMOKE_INDEX)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        window_engine("btp", SMOKE_INDEX, shards=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedCoconutLSM(SMOKE_INDEX, shards=2)
+    assert window_engine("btp", SMOKE_INDEX, shards=4,
+                         device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         approx_knn([Partition.from_buffer(buf, SMOKE_INDEX)], x[:2],
                    SMOKE_INDEX, budget=0)
@@ -153,6 +168,30 @@ def test_durable_engine_defaults_to_cuda(tmp_path):
     assert re.device.type == "cpu" and re.n == 8
 
 
+def test_sharded_store_defaults_to_cuda(tmp_path):
+    """A sharded engine over a data directory, made or reopened, runs on
+    the card by default; without one it raises, and it runs on the CPU
+    only when ``device="cpu"`` is passed."""
+    from repro_torch.distributed import ShardedCoconutLSM
+    x = np.random.default_rng(0).standard_normal(
+        (40, SMOKE_INDEX.series_len)).astype(np.float32)
+    root = str(tmp_path / "sharded")
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    eng = ShardedCoconutLSM(SMOKE_INDEX, shards=2, data_dir=root,
+                            device=dev)
+    eng.insert(x)
+    eng.close()
+    if torch.cuda.is_available():
+        re = ShardedCoconutLSM.open(root)
+        assert re.device.type == "cuda" and re.n == 40
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedCoconutLSM.open(root)
+    re = ShardedCoconutLSM.open(root, device="cpu")
+    assert re.n == 40
+    assert all(s.device.type == "cpu" for s in re._shard_list())
+
+
 def test_device_without_kernel_raises():
     """A tensor that is neither on the CPU nor on a CUDA device gets no
     kernel and no twin."""
@@ -173,6 +212,15 @@ def test_device_without_kernel_raises():
     with pytest.raises(ValueError, match="no kernel"):
         ops.mindist_batch_packed(q, torch.zeros((5, 4), dtype=torch.uint8,
                                                 device="meta"), SMOKE_INDEX)
+    block = [torch.zeros((2, 5, 8), dtype=torch.uint8, device="meta")]
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.mesh_scan(torch.zeros((2, 64), device="meta"), q, block,
+                      [torch.zeros((2, 5, 64), device="meta")],
+                      [torch.zeros((2, 5), dtype=torch.int32,
+                                   device="meta")],
+                      [torch.zeros((2, 5), dtype=torch.int32,
+                                   device="meta")], None,
+                      torch.zeros(2, device="meta"), SMOKE_INDEX)
 
 
 def test_no_kernel_mode_override():
