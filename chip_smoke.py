@@ -53,7 +53,17 @@ after a forced rebalance; then a 4-shard store under
 only in its write-ahead logs, reopened with the same bits threaded and
 mesh, through a tiered leaf store whose segment retirements drop the
 mesh engine's pinned columns, and a concurrent sharded engine whose
-mid-stream mesh batch is bounded by its buffers.  Then
+mid-stream mesh batch is bounded by its buffers.  Then the static
+sharded tree: phase 3's walks bulk-loaded into 4 shards on the card
+(``fused_build`` per shard, a sample-sort), whose exact batch gives the
+eager batch's dist bits through one ``scan_verify`` launch a shard,
+whose window batch equals brute force over the newest 1,048,576 rows
+and whose budgeted batch, where certified, the exact answers; then
+``obs``: wall-mode profiled launches (one ``kernel.<name>_ms``
+observation per dispatcher call), ``torch.profiler`` ranges, a
+``capture()`` trace, and a live 4-shard engine whose query log the
+workload analyzer certifies against the registry and whose
+``/metrics``, ``/health`` and ``/workload`` are scraped over HTTP.  Then
 every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
@@ -119,6 +129,14 @@ ISAX_ROWS = 65_536          # phase 14: rows inserted one at a time into iSAX
 # 10's buffer, so the stream buffers as many rows in all
 SHARDS = 4
 SHARD_CAPACITY = STREAM_CAPACITY // SHARDS
+# phase 17: the static sharded tree over phase 3's walks, four shards on the
+# card; a window of the newest rows by timestamp, a per-shard budget
+STATIC_WINDOW = 1_048_576
+STATIC_BUDGET = 4096
+STATIC_SINGLES = 4          # distributed_exact_search calls vs batch rows
+OBS_QUERIES = 8             # phase 18's live engine: queries a batch
+OBS_BATCHES = 4
+OBS_LEAVES = 16             # phase 18's traced batches: max_leaves
 
 
 def fail(msg: str) -> None:
@@ -1763,6 +1781,390 @@ def sharded_store_phase(torch, np, x, queries, modes_answer) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the static sharded Coconut-Tree, and obs on the card
+# ---------------------------------------------------------------------------
+
+def same_rows_as(torch, np, x, queries, d, rows, want_d, want_ids,
+                 what: str) -> int:
+    """Sharded answers (dists ``[Q, k]``, rows ``[Q, k, L]`` on the card)
+    against a tree's (dists, row ids into ``x``): dist bits equal, each
+    row the gathered ED of its dist, rows equal to ``x[ids]`` but where
+    two rows tie.  Returns the number of tie swaps."""
+    got = d.cpu().numpy()
+    check(np.array_equal(got.view(np.uint32),
+                         np.ascontiguousarray(want_d).view(np.uint32)),
+          f"{what}: dists are not bitwise equal")
+    nq, k, L = rows.shape
+    flat = rows.reshape(nq * k, L)
+    slot = torch.arange(nq * k, device=rows.device).reshape(nq, k)
+    from repro_torch.kernels import ops
+    again = ops.batch_euclid_multi(queries, flat, idx=slot)
+    check(torch.equal(again, d), f"{what}: a row is not its dist's row")
+    want_rows = x[torch.from_numpy(np.ascontiguousarray(want_ids))
+                  .to(x.device)]
+    swaps = ~(rows == want_rows).all(-1)
+    # a swapped slot holds another row at the same distance: a tie
+    return int(swaps.sum())
+
+
+def static_sharded_phase(torch, np, x, queries, eager) -> dict:
+    """Phase 17: phase 3's walks bulk-loaded into a static sharded tree of
+    four shards on the card (``fused_build`` per shard, then the
+    sample-sort), timestamps 0 .. N-1.  The exact batch gives phase 4's
+    dist bits through one ``scan_verify`` launch a shard; single queries
+    their batch rows; a window of the newest rows its brute force; a
+    per-shard budget the full answers wherever certified."""
+    from repro_torch.configs import INDEX as cfg
+    from repro_torch.distributed import (build_sharded,
+                                         distributed_exact_search,
+                                         distributed_exact_search_batch)
+    from repro_torch.kernels import loader
+    from repro_torch.launch.mesh import make_scan_mesh
+    n, L = x.shape
+    e_d, e_o = eager
+    dev = x.device
+    mesh = make_scan_mesh(SHARDS, devices=[dev] * SHARDS)
+    check(len(mesh) == SHARDS, f"static sharded: mesh {mesh}")
+    # raw, PAA, codes, keys and ts of every row, once; the sort's transients
+    # (one shard's received columns in flight, the local sorts' keys and
+    # permutations) are bounded by a raw shard's 2 GiB and a keys' copy
+    w, nw = cfg.segments, cfg.n_words
+    reckoned = n * (L * 4 + w * 4 + w + nw * 8 + 4)
+    transient = (n // SHARDS) * L * 4 + n * (nw * 8 + 16)
+    free, total = torch.cuda.mem_get_info()
+    print(f"static sharded: reckoned {reckoned / 2**30:.2f} GiB of shards "
+          f"+ {transient / 2**30:.2f} GiB of sort transients on top of "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
+          f"({free / 2**30:.1f} GiB free of {total / 2**30:.1f})")
+    check(reckoned + transient < free, "static sharded: does not fit")
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    ts = torch.arange(n, device=dev)
+    loader.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = build_sharded(mesh, x, cfg, timestamps=ts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del ts
+    launches["build"] = dict(loader.LAUNCHES)
+    check(launches["build"].get("fused_build", 0) == SHARDS,
+          f"static sharded build: launches {launches['build']}")
+    counts = tree.counts.tolist()
+    check(sum(counts) == n and tree.n_valid == n
+          and all(0 < c <= 2 * n // SHARDS for c in counts),
+          f"static sharded: counts {counts}")
+    from repro_torch.core.keys import key_less
+    for j, k_ in enumerate(tree.keys):
+        check(k_.device == dev and not key_less(k_[1:], k_[:-1]).any(),
+              f"static sharded: shard {j} not in z-order")
+        if j:
+            check(not key_less(k_[:1], tree.keys[j - 1][-1:]).any(),
+                  f"static sharded: shards {j - 1} and {j} overlap")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"static sharded: build {build_s:.3f} s (4 shards on one card, "
+          f"cap_factor 2); counts {counts}; global z-order; launches "
+          f"{launches['build']}; device peak {peak / 2**30:.1f} GiB")
+
+    def exact():
+        return distributed_exact_search_batch(tree, queries, k=K)
+
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    d, rows = exact()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches["exact"] = dict(loader.LAUNCHES)
+    check(launches["exact"].get("scan_verify", 0) == SHARDS
+          and launches["exact"].get("batch_euclid_gather", 0) == SHARDS,
+          f"static sharded exact: launches {launches['exact']} (want "
+          f"{SHARDS} scan_verify and {SHARDS} gathered re-verifies)")
+    swaps = same_rows_as(torch, np, x, queries, d, rows, e_d, e_o,
+                         "static sharded exact vs phase 4")
+    t0 = time.perf_counter()
+    d2, rows2 = exact()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(torch.equal(d2, d) and torch.equal(rows2, rows),
+          "static sharded: two exact batches disagree")
+    print(f"static sharded exact: Q={N_QUERIES} k={K}: {cold_s:.3f} s "
+          f"first batch, {warm_s:.3f} s warm; phase 4's dist bits "
+          f"({swaps} tie swaps); launches {launches['exact']}")
+    busy, prof = device_profile(torch, exact)
+    print(f"static sharded exact device busy (torch.profiler, one batch): "
+          f"{busy:.3f} ms of {warm_s * 1e3:.1f} ms wall "
+          f"({100 * busy / (warm_s * 1e3):.2f}%)")
+    kernel_total(prof, "scan_verify", "static sharded scan_verify kernels")
+    for qi in range(STATIC_SINGLES):
+        qs = queries[qi * (N_QUERIES // STATIC_SINGLES)]
+        d1, r1 = distributed_exact_search(tree, qs, k=K)
+        i = qi * (N_QUERIES // STATIC_SINGLES)
+        check(torch.equal(d1, d[i]) and torch.equal(r1, rows[i]),
+              f"static sharded: single query {i} differs from its row")
+    print(f"static sharded: distributed_exact_search == batch rows bit for "
+          f"bit for {STATIC_SINGLES} queries")
+
+    cut = n - STATIC_WINDOW
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    dw, rw = distributed_exact_search_batch(tree, queries, k=K, ts_min=cut)
+    torch.cuda.synchronize()
+    win_s = time.perf_counter() - t0
+    launches["window"] = dict(loader.LAUNCHES)
+    check(launches["window"].get("scan_verify", 0) == SHARDS,
+          f"static sharded window: launches {launches['window']}")
+    b_d, b_i = brute_rows(torch, x[cut:], torch.arange(cut, n, device=dev),
+                          queries, K)
+    check(np.allclose(b_d, dw.cpu().numpy(), rtol=1e-5),
+          "static sharded window: dists differ from brute force")
+    want = x[torch.from_numpy(b_i).to(dev)]
+    diff = ~(rw == want).all(-1).cpu().numpy()
+    check(not diff.any() or np.allclose(b_d[diff], dw.cpu().numpy()[diff],
+                                        rtol=1e-5),
+          "static sharded window: rows differ from brute force")
+    print(f"static sharded window: ts >= {cut} ({STATIC_WINDOW} rows) in "
+          f"{win_s:.3f} s; equal to brute force over x[-{STATIC_WINDOW}:] "
+          f"({int(diff.sum())} tie swaps); launches {launches['window']}")
+
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    db, rb, cert = distributed_exact_search_batch(tree, queries, k=K,
+                                                  budget=STATIC_BUDGET)
+    torch.cuda.synchronize()
+    bud_s = time.perf_counter() - t0
+    launches["budget"] = dict(loader.LAUNCHES)
+    check(launches["budget"].get("mindist_batch", 0) == SHARDS
+          and launches["budget"].get("batch_euclid_gather", 0) == SHARDS,
+          f"static sharded budget: launches {launches['budget']}")
+    check(bool((db >= d).all()), "static sharded budget: beats exact")
+    c = cert.cpu().numpy()
+    check(np.array_equal(db.cpu().numpy()[c].view(np.uint32),
+                         d.cpu().numpy()[c].view(np.uint32))
+          and torch.equal(rb[cert], rows[cert]),
+          "static sharded budget: a certified answer is not the exact one")
+    exact_too = int((db == d).all(1).sum())
+    print(f"static sharded budget: {STATIC_BUDGET} rows a shard in "
+          f"{bud_s:.3f} s; {int(c.sum())} of {N_QUERIES} queries "
+          f"certified, each equal to the full answer; {exact_too} answers "
+          f"exact; launches {launches['budget']}")
+    del tree, d, rows, d2, rows2, dw, rw, db, rb
+    torch.cuda.empty_cache()
+    return launches
+
+
+def obs_phase(torch, np, x, tree, queries, eager, eager_s) -> dict:
+    """Phase 18: ``obs`` on the card.  Wall-mode profiling around an eager
+    and a fused batch on phase 3's tree (phase 4's bits; one
+    ``kernel.<name>_ms`` observation per dispatcher call the script
+    counts); torch mode under ``torch.profiler`` (the ``coconut.*``
+    ranges) and ``capture()`` (a trace written) around a batch budgeted
+    to a few leaves; profiling off, the eager batch's seconds beside
+    phase 4's.  Then a 4-shard engine at phase
+    11's depth with a query log under ``build/obs_phase/``: the workload
+    analyzer certifies the log against the registry, the validator
+    passes the tracer's export and the log, and ``ObsHTTPServer`` is
+    scraped.  The directory goes at the end, on failure too."""
+    import urllib.error
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.configs import INDEX as cfg
+    from repro_torch.configs import LEAF_SIZE
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import ShardedCoconutLSM
+    from repro_torch.kernels import loader, ops
+    from repro_torch.obs import profile as prof
+    from repro_torch.obs.analytics import WorkloadAnalyzer, iter_query_log
+    from repro_torch.obs.health import HealthMonitor
+    from repro_torch.obs.httpd import ObsHTTPServer, prom_name
+    from repro_torch.obs.validate import validate, validate_query_log
+    from repro_torch.query import Partition, exact_knn
+    e_d, e_o = eager
+    reg = obs.get_registry()
+    part = Partition.from_tree(tree)
+    launches = {}
+    names = ("mindist_batch", "scan_verify")
+
+    def batches():
+        a = T.exact_search_batch(tree, queries, k=K)
+        b = exact_knn([part], queries, cfg, k=K, scan_mode="kernel")
+        return a, b
+
+    def hist_counts():
+        return {n_: reg.histogram(f"kernel.{n_}_ms").count for n_ in names}
+
+    # the dispatcher calls, counted here around the profiled wrappers
+    calls = dict.fromkeys(names, 0)
+    wrapped = {n_: getattr(ops, n_) for n_ in names}
+
+    def counting(n_):
+        def call(*a, **kw):
+            calls[n_] += 1
+            return wrapped[n_](*a, **kw)
+        return call
+
+    for n_ in names:
+        setattr(ops, n_, counting(n_))
+    try:
+        before = hist_counts()
+        prof.enable_profiling("wall")
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        (a_d, a_o, _), (f_d, f_o, _) = batches()
+        wall_s = time.perf_counter() - t0
+        prof.disable_profiling()
+        launches["wall"] = dict(loader.LAUNCHES)
+        after = hist_counts()
+    finally:
+        prof.disable_profiling()
+        for n_ in names:
+            setattr(ops, n_, wrapped[n_])
+    for got_d, got_o, what in ((a_d, a_o, "eager"), (f_d, f_o, "fused")):
+        check(np.array_equal(got_o, e_o)
+              and np.array_equal(got_d.view(np.uint32), e_d.view(np.uint32)),
+              f"obs: {what} batch under wall profiling lost phase 4's bits")
+    seen = {n_: after[n_] - before[n_] for n_ in names}
+    check(seen == calls and all(calls.values()),
+          f"obs: kernel histograms {seen} vs dispatcher calls {calls}")
+    h = {n_: reg.histogram(f"kernel.{n_}_ms") for n_ in names}
+    print(f"obs wall mode: eager + fused batch {wall_s:.3f} s, phase 4's "
+          f"bits; histogram counts {seen} == dispatcher calls {calls}; "
+          + "; ".join(f"kernel.{n_}_ms p50 {h[n_].percentile(50):.4f} p99 "
+                      f"{h[n_].percentile(99):.4f} ms" for n_ in names))
+
+    # the traced batches are budgeted (a few leaf groups each): a whole
+    # batch's trace holds thousands of launches and takes tens of seconds
+    def budgeted():
+        return T.exact_search_batch(tree, queries, k=K, budget=OBS_LEAVES)
+
+    from torch.profiler import ProfilerActivity, profile
+    prof.enable_profiling("torch")
+    try:
+        loader.LAUNCHES.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tp:
+            budgeted()
+            torch.cuda.synchronize()
+        launches["torch"] = dict(loader.LAUNCHES)
+    finally:
+        prof.disable_profiling()
+    ranges = {e.key: e.count for e in tp.key_averages()
+              if e.key.startswith("coconut.")}
+    check(ranges.get("coconut.mindist_batch", 0) > 0,
+          f"obs torch mode: ranges {ranges}, launches {launches['torch']}")
+    print(f"obs torch mode: record_function ranges {ranges} in a batch "
+          f"budgeted to {OBS_LEAVES} leaves under torch.profiler (launches "
+          f"{launches['torch']})")
+
+    work = ROOT / "build" / "obs_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        loader.LAUNCHES.clear()
+        with prof.capture(str(work / "capture")):
+            budgeted()
+            torch.cuda.synchronize()
+        launches["capture"] = dict(loader.LAUNCHES)
+        traces = list((work / "capture").glob("capture-*.json"))
+        check(len(traces) == 1 and traces[0].stat().st_size > 0
+              and json.loads(traces[0].read_text())["traceEvents"],
+              f"obs capture: traces {traces}")
+        print(f"obs capture: {traces[0].stat().st_size} B of Chrome trace "
+              f"for a batch budgeted to {OBS_LEAVES} leaves")
+
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        o_d, o_o, _ = T.exact_search_batch(tree, queries, k=K)
+        off_s = time.perf_counter() - t0
+        launches["off"] = dict(loader.LAUNCHES)
+        check(np.array_equal(o_o, e_o)
+              and np.array_equal(o_d.view(np.uint32), e_d.view(np.uint32)),
+              "obs: eager batch with profiling off lost phase 4's bits")
+        print(f"obs profiling off: eager batch {off_s:.3f} s (phase 4: "
+              f"{eager_s:.3f} s)")
+
+        # a live sharded engine, its log certified against the registry
+        n = STREAM_ROWS // MODES_DEPTH
+        cap = SHARD_CAPACITY // MODES_DEPTH
+        size = STREAM_BATCH // MODES_DEPTH
+        x_host = x[:n].cpu().numpy()
+        q_host = queries[:OBS_QUERIES]
+        reg.reset()
+        obs.get_tracer().clear()
+        obs.enable_tracing()
+        log = obs.QueryLog(str(work / "qlog"))
+        obs.install_query_log(log)
+        ana = WorkloadAnalyzer()
+        obs.add_probe_observer(ana.feed)
+        mon = HealthMonitor(sources={}, events_dir=str(work / "qlog"))
+        loader.LAUNCHES.clear()
+        prof.enable_profiling("wall")
+        try:
+            t0 = time.perf_counter()
+            with ShardedCoconutLSM(cfg, shards=SHARDS, buffer_capacity=cap,
+                                   leaf_size=LEAF_SIZE) as eng:
+                for s in range(0, n, size):
+                    eng.insert(x_host[s:s + size])
+                eng.flush()
+                for _ in range(OBS_BATCHES):
+                    eng.search_exact_batch(q_host, k=K)
+            session_s = time.perf_counter() - t0
+        finally:
+            prof.disable_profiling()
+            obs.remove_probe_observer(ana.feed)
+            obs.install_query_log(None)
+            log.close()
+            obs.disable_tracing()
+        launches["engine"] = dict(loader.LAUNCHES)
+        desc = obs.describe_metrics()
+        offline = WorkloadAnalyzer().feed_all(iter_query_log(
+            str(work / "qlog")))
+        errs = offline.check_against(desc) + ana.check_against(desc)
+        check(errs == [], f"obs analytics: {errs}")
+        p_ = offline.profile()
+        check(p_["records"] == OBS_BATCHES and p_["complete"],
+              f"obs analytics: {p_['records']} records, complete "
+              f"{p_['complete']}")
+        v_trace = validate(obs.get_tracer().export_chrome())
+        v_log = validate_query_log(str(work / "qlog"))
+        check(v_trace == [] and v_log == [],
+              f"obs validate: trace {v_trace[:3]}, log {v_log[:3]}")
+        print(f"obs engine: {n} rows into {SHARDS} shards and {OBS_BATCHES} "
+              f"batches of {OBS_QUERIES} queries in {session_s:.3f} s under "
+              f"wall profiling; the log certified against the registry "
+              f"(totals {p_['totals']}); validate: trace and log clean")
+
+        with ObsHTTPServer(0, health=mon, analyzer=ana) as srv:
+            def get(path):
+                try:
+                    with urllib.request.urlopen(srv.url + path,
+                                                timeout=30) as r:
+                        return r.status, r.read().decode()
+                except urllib.error.HTTPError as e:
+                    return e.code, e.read().decode()
+            m_status, text = get("/metrics")
+            h_status, health = get("/health")
+            w_status, work_doc = get("/workload")
+            u_status, _ = get("/no-such-path")
+        series = sorted({ln.split()[2] for ln in text.splitlines()
+                         if ln.startswith("# TYPE ")
+                         and ln.split()[2].startswith(prom_name("kernel."))})
+        check(m_status == 200
+              and prom_name("kernel.mindist_batch_ms") in series,
+              f"obs scrape: /metrics {m_status}, kernel series {series}")
+        check(h_status == 200, f"obs scrape: /health {h_status} {health}")
+        check(w_status == 200 and json.loads(work_doc)["records"]
+              == OBS_BATCHES, f"obs scrape: /workload {w_status}")
+        check(u_status == 404, f"obs scrape: unknown path {u_status}")
+        print(f"obs scrape: /metrics 200 ({len(text)} B; {series}), "
+              f"/health 200 ({json.loads(health)['state']}), /workload 200, "
+              f"unknown path 404")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2002,9 +2404,20 @@ def main() -> int:
     # -- 16: the sharded store: reopen, tiers, a concurrent engine --------------
     t0 = time.perf_counter()
     store_l = sharded_store_phase(torch, np, x, queries, modes_answer)
-    del x
     torch.cuda.empty_cache()
     print(f"sharded store phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 17: the static sharded tree over phase 3's walks -----------------------
+    t0 = time.perf_counter()
+    static_l = static_sharded_phase(torch, np, x, queries, (e_d, e_o))
+    print(f"static sharded phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 18: obs on the card ------------------------------------------------------
+    t0 = time.perf_counter()
+    obs_l = obs_phase(torch, np, x, tree, queries, (e_d, e_o), eager_s)
+    del x
+    torch.cuda.empty_cache()
+    print(f"obs phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 12: budgeted search on the tree -----------------------------------------
     t0 = time.perf_counter()
@@ -2372,7 +2785,8 @@ def main() -> int:
                   *seg_out["launches"].values(), *stream_l.values(),
                   *modes_l.values(), *durable_l.values(),
                   *budget_l.values(), *trie_l.values(),
-                  *sharded_l.values(), *store_l.values()):
+                  *sharded_l.values(), *store_l.values(),
+                  *static_l.values(), *obs_l.values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
     launches["unpack_mindist_hot"] = \

@@ -4,6 +4,10 @@ A CUDA tensor launches the hand-written kernel (or the call raises); a CPU
 tensor takes the kernel's plain twin in :mod:`repro_torch.kernels.ref`.
 There is no mode argument, no environment override and no fallback from a
 failed launch to a twin.  These are the entry points the index code uses.
+The four the reference instruments (``mindist_batch``,
+``mindist_batch_packed``, ``scan_verify``, ``mesh_scan``) are wrapped in
+:func:`repro_torch.obs.profile.profiled`: one global check per call
+while profiling is off.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..core import summarization as S
+from ..obs.profile import profiled
 from .batch_euclid import batch_euclid as _euclid_cross
 from .batch_euclid import batch_euclid_gather as _euclid_gather
 from .fused_build import fused_build as _fused_build
@@ -47,6 +52,7 @@ def mindist(q_paa: torch.Tensor, codes: torch.Tensor,
     return mindist_batch(q_paa[None, :], codes, cfg)[0]
 
 
+@profiled("mindist_batch")
 def mindist_batch(q_paas: torch.Tensor, codes: torch.Tensor,
                   cfg: S.SummaryConfig) -> torch.Tensor:
     """Batched squared iSAX lower bound: ``[Q, w] x [N, w] -> [Q, N]``.
@@ -58,6 +64,7 @@ def mindist_batch(q_paas: torch.Tensor, codes: torch.Tensor,
                           lower, upper, cfg.series_len / cfg.segments)
 
 
+@profiled("mindist_batch_packed")
 def mindist_batch_packed(q_paas: torch.Tensor, packed: torch.Tensor,
                          cfg: S.SummaryConfig) -> torch.Tensor:
     """Batched lower bound over format-v3 *packed* code rows:
@@ -90,6 +97,7 @@ def batch_euclid_multi(queries: torch.Tensor, series: torch.Tensor,
                           idx.to(torch.int64).contiguous())
 
 
+@profiled("scan_verify")
 def scan_verify(queries: torch.Tensor, q_paas: torch.Tensor,
                 codes: torch.Tensor, raw: torch.Tensor, bound: torch.Tensor,
                 cfg: S.SummaryConfig, *, k: int = 1,
@@ -112,6 +120,7 @@ def scan_verify(queries: torch.Tensor, q_paas: torch.Tensor,
                         scale=cfg.series_len / cfg.segments, k=k)
 
 
+@profiled("mesh_scan")
 def mesh_scan(queries: torch.Tensor, q_paas: torch.Tensor,
               codes: Sequence[torch.Tensor], raw: Sequence[torch.Tensor],
               ids: Sequence[torch.Tensor], ts: Sequence[torch.Tensor],

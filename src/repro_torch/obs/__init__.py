@@ -1,17 +1,24 @@
-"""Observability: unified metrics registry and query tracing.
+"""Observability: unified metrics registry, query tracing, profiling.
 
-Pure-Python copies of the reference package's ``obs`` core (the port
-imports nothing from it):
+One substrate under the whole serving stack (the port's own copy; it
+imports nothing from the reference package):
 
 * :mod:`repro_torch.obs.registry` — named counters/gauges/histograms
   behind the ``subsystem.metric_unit`` naming convention; ``IOStats``
   mirrors into it, the query pipeline folds every ``SearchStats`` into
   it, and :func:`describe_metrics` is the one scrape point.
 * :mod:`repro_torch.obs.trace` — per-query span trees (plan → prune →
-  scan → verify), ring-buffered and exported as Chrome/Perfetto
-  ``trace_event`` JSON.
+  scan → verify → merge, plus per-shard fan-out), ring-buffered and
+  exported as Chrome/Perfetto ``trace_event`` JSON.
 * :mod:`repro_torch.obs.querylog` — one structured JSON record per
-  probe, size-rotated.
+  probe, size-rotated alongside the WAL; the input for
+  workload-adaptive maintenance.
+* :mod:`repro_torch.obs.profile` — gated ``torch.profiler`` ranges
+  around kernel launches with a wall-clock mode.
+* :mod:`repro_torch.obs.analytics`, :mod:`~repro_torch.obs.health`,
+  :mod:`~repro_torch.obs.httpd`, :mod:`~repro_torch.obs.validate` — the
+  workload analyzer over the query log, the SLO monitor, the HTTP scrape
+  (``/metrics``, ``/health``, ``/workload``) and the artifact validator.
 
 :func:`probe` is the root scope every top-level search entry point
 opens: it tracks nesting (the sharded engine's per-shard sub-searches

@@ -42,7 +42,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.distributed.samplesort",
            "repro_torch.distributed.sharded_lsm", "repro_torch.launch",
            "repro_torch.launch.mesh", "repro_torch.kernels.mesh_scan",
-           "repro_torch.query.mesh"]
+           "repro_torch.query.mesh", "repro_torch.distributed.sharded_index",
+           "repro_torch.obs.profile", "repro_torch.obs.analytics",
+           "repro_torch.obs.health", "repro_torch.obs.httpd",
+           "repro_torch.obs.validate"]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -190,6 +193,53 @@ def test_sharded_store_defaults_to_cuda(tmp_path):
     re = ShardedCoconutLSM.open(root, device="cpu")
     assert re.n == 40
     assert all(s.device.type == "cpu" for s in re._shard_list())
+
+
+def test_static_sharded_tree_defaults_to_cuda(monkeypatch):
+    """``build_sharded`` with no mesh takes one shard per visible card,
+    and ``sharded_tree_from_arrays`` with no mesh spreads its shards over
+    ``make_scan_mesh``'s devices; without a card both raise."""
+    from repro_torch.distributed import sharded_index as SI
+    x = np.random.default_rng(0).standard_normal(
+        (16, SMOKE_INDEX.series_len)).astype(np.float32)
+    if torch.cuda.is_available():
+        tree = SI.build_sharded(None, x, SMOKE_INDEX)
+        assert all(d.type == "cuda" for d in tree.mesh)
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SI.build_sharded(None, x, SMOKE_INDEX)
+    tree = SI.build_sharded(["cpu"] * 2, x, SMOKE_INDEX)
+    cols = [np.concatenate([c.numpy() for c in getattr(tree, n)])
+            for n in ("keys", "codes", "paas", "raw")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SI.sharded_tree_from_arrays(*cols, tree.counts.numpy(), SMOKE_INDEX)
+    # the default mesh: one entry per shard over make_scan_mesh's devices
+    seen = []
+
+    def fake_mesh(n_shards):
+        seen.append(n_shards)
+        return (torch.device("cpu"),)
+
+    monkeypatch.setattr(SI, "make_scan_mesh", fake_mesh)
+    again = SI.sharded_tree_from_arrays(*cols, tree.counts.numpy(),
+                                        SMOKE_INDEX)
+    assert seen == [2] and again.mesh == (torch.device("cpu"),) * 2
+    assert SI.build_sharded(None, x, SMOKE_INDEX).mesh == \
+        (torch.device("cpu"),)
+    assert seen == [2, 1]
+
+
+def test_ops_profiles_the_references_dispatchers():
+    """``ops`` wraps in ``profiled`` the four dispatchers the reference
+    wraps, by the same names, and no others."""
+    root = PKG.parent
+    ref = re.findall(r'profiled\("(\w+)"\)',
+                     (root / "repro" / "kernels" / "ops.py").read_text())
+    port = re.findall(r'profiled\("(\w+)"\)',
+                      (PKG / "kernels" / "ops.py").read_text())
+    assert len(ref) == 4 and sorted(ref) == sorted(port)
+    for name in port:
+        assert getattr(ops, name).__name__ == name
 
 
 def test_device_without_kernel_raises():
