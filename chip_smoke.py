@@ -64,6 +64,15 @@ observation per dispatcher call), ``torch.profiler`` ranges, a
 ``capture()`` trace, and a live 4-shard engine whose query log the
 workload analyzer certifies against the registry and whose
 ``/metrics``, ``/health`` and ``/workload`` are scraped over HTTP.  Then
+serving (``launch/serve.py``'s loop): ``llama3.2-1b`` at its published
+width in bf16 decodes 128 steps of a 64-sequence batch (prompt 256) and
+streams every step's z-normalized logit summaries into a btp LSM,
+answering window-64 probe micro-batches of 8 (``fused_build`` every
+flush, ``mindist_batch`` and the cross form every batch; the last batch
+equal to a brute force by the plain twin); an fp32 copy's prefill +
+decode equals its forward; then 32 steps through a 4-shard mesh store
+under ``build/serve_phase/`` (concurrent, tiered), reopened by a second
+run with every acknowledged row, and a budgeted pass.  Then
 every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
@@ -137,6 +146,15 @@ STATIC_SINGLES = 4          # distributed_exact_search calls vs batch rows
 OBS_QUERIES = 8             # phase 18's live engine: queries a batch
 OBS_BATCHES = 4
 OBS_LEAVES = 16             # phase 18's traced batches: max_leaves
+# phase 19: the serving loop at llama3.2-1b's published width
+SERVE_ARCH = "llama3.2-1b"
+SERVE_BATCH = 64
+SERVE_PROMPT = 256
+SERVE_STEPS = 128
+SERVE_BRANCH_STEPS = 32     # the sharded, reopened and budgeted runs
+SERVE_PROFILED_STEPS = 8    # the warm-up run, then the same run profiled
+SERVE_FP32_T = 64           # the fp32 cache-consistency prompt
+SERVE_FP32_TOL = 1e-3       # rtol = atol for prefill + decode vs forward
 
 
 def fail(msg: str) -> None:
@@ -2165,6 +2183,227 @@ def obs_phase(torch, np, x, tree, queries, eager, eager_s) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 19: serving — decode at full width feeding the streaming index
+# ---------------------------------------------------------------------------
+
+def run_serve(SV, cfg, argv, **kw):
+    """``serve`` of ``cfg`` under the command line ``argv``, its printed
+    lines echoed; returns (result, the lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = SV.serve(cfg, SV.build_parser().parse_args(argv), **kw)
+    text = buf.getvalue()
+    for ln in text.splitlines():
+        print(f"  serve: {ln[:400]}")
+    return out, text
+
+
+def serving_phase(torch, np) -> dict:
+    """``launch/serve.py``'s loop at ``llama3.2-1b``'s published width on
+    the card: (a) batch 64, prompt 256, 128 decode steps into a btp LSM
+    with the reference's index settings (probe micro-batches of 8 at
+    window 64, k 1), the launches of its kernels counted; (b) the last
+    micro-batch against a brute force by the plain twin over the rows the
+    window covers; (c) fp32 prefill + one decode step against a forward
+    over T + 1 tokens; (d) 32 steps through a 4-shard mesh store under
+    ``build/serve_phase/`` (concurrent, tiered), again on the same
+    directory, then a budgeted pass.  Short runs before (a) warm the loop
+    and give the device's busy share."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import loader, ref
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import (Model, make_prefill_step,
+                                    make_serve_step, pad_cache)
+    from repro_torch.obs.registry import get_registry
+    dev = torch.device(DEVICE)
+    cfg = get(SERVE_ARCH)
+    B, T, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    hd, V = cfg.head_dim_, cfg.vocab
+    weights = 2 * cfg.param_count()
+    logits_b = B * T * V * 2
+    kv_b = cfg.n_layers * 2 * B * (T + steps + 1) * cfg.n_kv_heads * hd * 2
+    scores_b = B * cfg.n_heads * T * T * 4
+    print(f"serving: {SERVE_ARCH} at its published width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, kv "
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {V}; "
+          f"{cfg.param_count() / 1e9:.2f} B params); reckoned: weights "
+          f"{weights / 1e9:.2f} GB bf16, prefill logits [{B}, {T}, {V}] "
+          f"{logits_b / 1e9:.2f} GB, KV cache {kv_b / 1e9:.2f} GB (a "
+          f"layer's copy at each step), prefill scores a layer "
+          f"{scores_b / 1e9:.2f} GB fp32; allocated before the phase "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg, device=dev, seed=0).state_dict()
+    torch.cuda.synchronize()
+    print(f"serving: weights drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+
+    # -- the device's busy share: a short run to warm every path of the
+    # loop (its first probe batch pays seconds of first calls), the same
+    # run timed, then under torch.profiler; the profiler slows the host
+    # many times over, so the share is the profiled device time over the
+    # unprofiled wall
+    short = ["--arch", SERVE_ARCH, "--steps", str(SERVE_PROFILED_STEPS),
+             "--batch", str(B), "--prompt-len", str(T)]
+    t0 = time.perf_counter()
+    run_serve(SV, cfg, short, params=params)
+    print(f"serving warm-up: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    run_serve(SV, cfg, short, params=params)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    busy_ms, _ = device_profile(
+        torch, lambda: run_serve(SV, cfg, short, params=params), top=6)
+    prof_s = time.perf_counter() - t0
+    print(f"serving device busy (torch.profiler; prefill + "
+          f"{SERVE_PROFILED_STEPS} steps + 1 probe batch): {busy_ms:.1f} ms "
+          f"of device time over {plain_s * 1e3:.1f} ms of unprofiled wall "
+          f"({100 * busy_ms / (plain_s * 1e3):.2f}%; {prof_s:.1f} s "
+          f"profiled)")
+
+    # -- (a) full-width decode into the index --------------------------------
+    rows = []
+    argv = ["--arch", SERVE_ARCH, "--steps", str(steps), "--batch", str(B),
+            "--prompt-len", str(T)]
+    loader.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out, _ = run_serve(SV, cfg, argv, params=params,
+                       on_step=lambda s, logits, h: rows.append(h))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches["decode"] = dict(loader.LAUNCHES)
+    rep = out["report"]
+    for name in ("fused_build", "mindist_batch", "batch_euclid"):
+        check(launches["decode"].get(name, 0) > 0,
+              f"serving launched no {name}: {launches['decode']}")
+    check(rep["ingest.rows_total"] == B * steps
+          and rep["probe.count_total"] == steps
+          and rep["probe.micro_batches_total"] == steps // 8,
+          f"serving counts: {rep}")
+    print(f"serving decode: {steps} steps x {B} seqs (prompt {T}) in "
+          f"{out['wall_s']:.3f} s of loop ({serve_s:.3f} s with prefill "
+          f"and the index's set-up): {rep['decode.throughput_tok_s']} "
+          f"tok/s; {rep['ingest.rows_total']} rows ingested; "
+          f"{rep['probe.count_total']} probes in "
+          f"{rep['probe.micro_batches_total']} micro-batches, p50 "
+          f"{rep['probe.latency_p50_ms']} ms, p99 "
+          f"{rep['probe.latency_p99_ms']} ms; launches "
+          f"{launches['decode']}; device peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # -- (b) the last micro-batch against brute force over the window ---------
+    allrows = np.concatenate(rows)
+    window = 64
+    cut = allrows.shape[0] - window
+    probes, d, ids = out["answers"][-1]
+    win = torch.from_numpy(allrows[cut:]).to(dev)
+    q = torch.from_numpy(probes).to(dev)
+    ed = ref.batch_euclid_ref(q, win)
+    order = torch.sort(ed, dim=1, stable=True).indices[:, :1]
+    b_d = torch.gather(ed, 1, order).cpu().numpy()
+    b_o = (order + cut).cpu().numpy()
+    swaps = agrees_with_brute(np, (b_d, b_o), (d, ids),
+                              "serving last micro-batch")
+    check(np.array_equal(b_o, ids), "serving: ids differ from brute force")
+    print(f"serving exact: the last micro-batch ({len(probes)} probes) "
+          f"equals a brute force by the plain twin over the {window} rows "
+          f"of the window (ids {ids[:, 0].tolist()}, {swaps} tie swaps, "
+          f"dists within rtol 1e-5)")
+
+    # -- (c) fp32 cache consistency at full width ------------------------------
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    m32 = Model(cfg32, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tok = torch.randint(0, V, (2, SERVE_FP32_T + 1), generator=gen,
+                        device=dev)
+    full, _, _ = m32.forward(tok)
+    _, cache = make_prefill_step(m32)({"tokens": tok[:, :-1]})
+    cache = pad_cache(m32, cache, extra=2)
+    dec, _ = make_serve_step(m32)(cache, tok[:, -1:], SERVE_FP32_T)
+    want, got = full[:, -1].double(), dec[:, 0].double()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-6)).max())
+    check(torch.allclose(got, want, rtol=SERVE_FP32_TOL,
+                         atol=SERVE_FP32_TOL),
+          f"serving fp32: decode differs from forward by {err}")
+    print(f"serving fp32 (TF32 off): prefill {SERVE_FP32_T} + one decode "
+          f"step == a forward over {SERVE_FP32_T + 1} tokens, batch 2: max "
+          f"abs err {err:.3e} (logits up to {float(want.abs().max()):.2f};"
+          f" tolerance rtol = atol = {SERVE_FP32_TOL}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    del m32, full, cache, dec, want, got
+    torch.cuda.empty_cache()
+
+    # -- (d) sharded, mesh, durable, tiered; reopened; budgeted ----------------
+    work = ROOT / "build" / "serve_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    reg = get_registry()
+    b_steps = SERVE_BRANCH_STEPS
+    bargv = ["--arch", SERVE_ARCH, "--steps", str(b_steps), "--batch",
+             str(B), "--prompt-len", str(T)]
+    try:
+        texts = []
+        loader.LAUNCHES.clear()
+        for run in range(2):
+            mesh0 = reg.counter("query.mesh_launches_total").value
+            t0 = time.perf_counter()
+            o, text = run_serve(SV, cfg, bargv + [
+                "--shards", str(SHARDS), "--scan-mode", "mesh",
+                "--concurrent", "--data-dir", str(work), "--cache-mb", "64"],
+                params=params)
+            r = o["report"]
+            mesh = r["query.mesh_launches_total"] - mesh0
+            check(mesh > 0, f"serving run {run + 1}: no mesh launch ({r})")
+            texts.append(text)
+            print(f"serving sharded run {run + 1}: {time.perf_counter() - t0:.2f}"
+                  f" s; {r['decode.throughput_tok_s']} tok/s, probe p50 "
+                  f"{r['probe.latency_p50_ms']} ms p99 "
+                  f"{r['probe.latency_p99_ms']} ms; mesh launches {mesh}, "
+                  f"fallbacks {r['query.mesh_fallbacks_total']}; cache hits "
+                  f"{r['cache.hits_total']}, promotions "
+                  f"{r['cache.promotions_total']}")
+        launches["branches"] = dict(loader.LAUNCHES)
+        check("reopened" not in texts[0], "serving: run 1 reopened")
+        acked = B * b_steps
+        line = [ln for ln in texts[1].splitlines()
+                if ln.startswith("reopened")]
+        check(line and f": {acked} entries" in line[0],
+              f"serving run 2 did not reopen {acked} rows: {line}")
+        from repro_torch.distributed import ShardedCoconutLSM
+        again = ShardedCoconutLSM.open(str(work), device=dev)
+        n_all = again.n
+        again.close()
+        check(n_all == 2 * acked, f"serving: {n_all} rows after two runs")
+        print(f"serving reopen: run 2 reopened the {acked} rows run 1 "
+              f"acknowledged, and a third open finds all {n_all}; launches "
+              f"{launches['branches']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    loader.LAUNCHES.clear()
+    o, text = run_serve(SV, cfg, bargv + ["--budget-leaves", "16"],
+                        params=params)
+    launches["budget"] = dict(loader.LAUNCHES)
+    gap = [ln for ln in text.splitlines() if "gap max=" in ln]
+    check(gap, "serving budget: no gap reported")
+    print(f"serving budget (--budget-leaves 16): "
+          f"{gap[0][gap[0].index('gap max='):]}; probe p50 "
+          f"{o['report']['probe.latency_p50_ms']} ms; launches "
+          f"{launches['budget']}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2428,6 +2667,11 @@ def main() -> int:
     t0 = time.perf_counter()
     trie_l = trie_phase(torch, np, tree)
     print(f"trie phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19: serving: decode at llama3.2-1b's width feeding the index -------------
+    t0 = time.perf_counter()
+    serve_l = serving_phase(torch, np)
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 9: each kernel at the main path's shapes ----------------------------------
     timer = Timer(torch)
@@ -2786,7 +3030,8 @@ def main() -> int:
                   *modes_l.values(), *durable_l.values(),
                   *budget_l.values(), *trie_l.values(),
                   *sharded_l.values(), *store_l.values(),
-                  *static_l.values(), *obs_l.values()):
+                  *static_l.values(), *obs_l.values(),
+                  *serve_l.values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
     launches["unpack_mindist_hot"] = \

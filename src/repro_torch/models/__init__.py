@@ -1,0 +1,10 @@
+"""The serving models: the ten architecture families of ``configs/`` in
+plain PyTorch (the reference's ``models/`` calls no kernel either)."""
+from .config import ModelConfig
+from .steps import (cross_entropy, make_prefill_step, make_serve_step,
+                    pad_cache)
+from .transformer import Model, params_from_reference
+
+__all__ = ["ModelConfig", "Model", "params_from_reference",
+           "make_prefill_step", "make_serve_step", "pad_cache",
+           "cross_entropy"]

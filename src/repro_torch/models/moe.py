@@ -1,0 +1,121 @@
+"""Mixture-of-Experts FFN with sort-based capacity dispatch.
+
+The reference's dispatch, step for step: each token's top-k expert
+choices are sorted (stably) by expert id, a choice's slot is its rank in
+its expert's run (a left-sided search for the run's start), and the
+inverse permutation brings the slots back to choice order.  Expert
+buffers are ``[B, E, C, d]`` with ``C = ceil(T*k*cf/E)``; a choice past
+its expert's capacity goes to the sink slot ``E*C`` and is dropped, so
+the same tokens are dropped as in the reference.
+
+Router extras: softmax probs renormalized over the top-k, the
+Switch-style load-balance aux loss and the router z-loss.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import Initializer, dense_init
+
+__all__ = ["moe_params", "moe_block"]
+
+
+def moe_params(init: Optional[Initializer], cfg: ModelConfig, dtype,
+               device) -> dict:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": dense_init(init, (d, E), torch.float32, device,
+                             scale=0.02),
+        "w_gate": dense_init(init, (E, d, ff), dtype, device),
+        "w_up": dense_init(init, (E, d, ff), dtype, device),
+        "w_down": dense_init(init, (E, ff, d), dtype, device),
+    }
+
+
+def _capacity(T: int, k: int, E: int, cf: float) -> int:
+    c = int(-(-T * k * cf // E))
+    return max(c, 1)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """Top-k along the last axis, ties to the lowest index (as
+    ``lax.top_k``): a stable descending sort keeps equal values in index
+    order, which ``torch.topk`` does not promise."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(x: torch.Tensor, p, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, dict]:
+    """x: [B, T, d] -> (y: [B, T, d], aux losses dict)."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = _capacity(T, k, E, cfg.capacity_factor)
+    dev = x.device
+
+    logits = x.float() @ p["router"]                         # [B, T, E]
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, k)                          # [B, T, k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- aux losses (fp32) --------------------------------------------------
+    me = probs.mean(dim=(0, 1))                              # mean router prob
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+        0, top_e.reshape(-1),
+        torch.full((B * T * k,), 1.0 / (B * T * k), dtype=torch.float32,
+                   device=dev))                              # assignment frac
+    aux = {
+        "load_balance": E * torch.sum(me * ce),
+        "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+    }
+
+    # ---- sort-based slotting ------------------------------------------------
+    e_flat = top_e.reshape(B, T * k)
+    p_flat = top_p.reshape(B, T * k)
+    e_sorted, order = torch.sort(e_flat, dim=-1, stable=True)
+    idx = torch.arange(T * k, device=dev)[None, :]
+    # start of each expert's run: left-sided search of the sorted ids
+    starts = torch.searchsorted(
+        e_sorted, torch.arange(E, device=dev).expand(B, E).contiguous())
+    slot_sorted = idx - torch.gather(starts, 1, e_sorted)
+    # invert the sort: the slot of each original choice position
+    inv = torch.empty_like(order).scatter_(
+        1, order, idx.expand(B, T * k).contiguous())
+    slot = torch.gather(slot_sorted, 1, inv)                 # [B, Tk]
+    valid = slot < C
+    tok = (idx // k).expand(B, T * k)                        # token of choice
+
+    # for each (b, e, c) slot, which token fills it; overflow -> sink
+    flat_pos = torch.where(valid, e_flat * C + slot, E * C)
+    token_for_slot = torch.zeros((B, E * C + 1), dtype=torch.int64,
+                                 device=dev).scatter_(1, flat_pos, tok)
+    occupied = torch.zeros((B, E * C + 1), dtype=torch.bool,
+                           device=dev).scatter_(
+        1, flat_pos, torch.ones_like(flat_pos, dtype=torch.bool))
+    token_for_slot = token_for_slot[:, : E * C]
+    occupied = occupied[:, : E * C].reshape(B, E, C)
+
+    # ---- dispatch: gather token activations into expert buffers -------------
+    xe = torch.gather(x, 1, token_for_slot[..., None].expand(B, E * C, d))
+    xe = xe.reshape(B, E, C, d)
+    xe = torch.where(occupied[..., None], xe, torch.zeros((), dtype=x.dtype,
+                                                          device=dev))
+
+    # ---- expert FFN (SwiGLU) ------------------------------------------------
+    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    ye = torch.einsum("becf,efd->becd", h, p["w_down"])      # [B, E, C, d]
+
+    # ---- combine: gather expert outputs back to (token, choice) -------------
+    gather_pos = torch.where(valid, e_flat * C + slot, 0)
+    ye_flat = ye.reshape(B, E * C, d)
+    y_choice = torch.gather(ye_flat, 1,
+                            gather_pos[..., None].expand(B, T * k, d))
+    y_choice = y_choice * (p_flat * valid)[..., None].to(x.dtype)
+    y = y_choice.reshape(B, T, k, d).sum(dim=2)
+    return y, aux

@@ -25,6 +25,17 @@ from repro_torch.core import tree as T
 from repro_torch.kernels import ops
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ARCH_MODULES = ["llama3_2_1b", "llama3_405b", "qwen1_5_110b", "granite_3_2b",
+                "granite_moe_1b_a400m", "llama4_maverick_400b_a17b",
+                "mamba2_2_7b", "recurrentgemma_2b", "phi_3_vision_4_2b",
+                "seamless_m4t_medium"]
+SERVING = ["repro_torch.models", "repro_torch.models.config",
+           "repro_torch.models.layers", "repro_torch.models.attention",
+           "repro_torch.models.moe", "repro_torch.models.ssm",
+           "repro_torch.models.rglru", "repro_torch.models.transformer",
+           "repro_torch.models.steps", "repro_torch.configs.registry",
+           "repro_torch.launch.serve",
+           *(f"repro_torch.configs.{m}" for m in ARCH_MODULES)]
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.kernels", "repro_torch.kernels.ops",
            "repro_torch.kernels.loader", "repro_torch.kernels.sax_summarize",
@@ -45,13 +56,14 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.query.mesh", "repro_torch.distributed.sharded_index",
            "repro_torch.obs.profile", "repro_torch.obs.analytics",
            "repro_torch.obs.health", "repro_torch.obs.httpd",
-           "repro_torch.obs.validate"]
+           "repro_torch.obs.validate", *SERVING]
 
 
 def test_imports_with_jax_and_reference_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -71,6 +83,58 @@ def test_no_source_names_jax_or_the_reference():
     assert len(files) > 20
     for f in files:
         assert not BAD_IMPORT.search(f.read_text()), f
+
+
+def test_serving_modules_sit_at_the_references_paths_and_name_no_jax():
+    """``models/``, ``launch/serve.py`` and the ten architecture configs
+    exist at the reference's relative paths, and their text names neither
+    jax, the reference package nor ``ml_dtypes`` (absent on the card's
+    machine)."""
+    ref_root = PKG.parent / "repro"
+    files = [PKG / (m[len("repro_torch."):].replace(".", "/") + ".py")
+             for m in SERVING if m != "repro_torch.models"]
+    files.append(PKG / "models" / "__init__.py")
+    assert len(files) == 21
+    word = re.compile(r"\bjax\b|\brepro\b(?!_)|ml_dtypes")
+    for f in files:
+        rel = f.relative_to(PKG)
+        if rel.name != "__init__.py":
+            assert (ref_root / rel).exists(), rel
+        assert not word.search(f.read_text()), f
+
+
+def test_model_and_serve_default_to_cuda():
+    """``Model``, ``params_from_reference`` and the serve loop run on the
+    card by default; without one they raise, and on the CPU they run only
+    when ``device="cpu"`` is passed."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, params_from_reference
+    cfg = get("llama3.2-1b", smoke=True)
+    argv = ["--arch", "llama3.2-1b", "--steps", "2", "--batch", "1",
+            "--probe-batch", "2"]
+    if torch.cuda.is_available():
+        assert Model(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.serve(cfg, serve.build_parser().parse_args(argv))
+    model = Model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    tree = {k: v.numpy() for k, v in model.state_dict().items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_reference({"embed": tree["embed"], "rem": []}, cfg)
+    with redirect_stdout(io.StringIO()):
+        out = serve.main(argv, device="cpu")
+    assert out["report"]["decode.steps_total"] == 2
 
 
 def test_chip_scripts_name_neither_jax_nor_the_reference():
