@@ -6,7 +6,9 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each one against its plain PyTorch twin, then drives the port's main
+holds each one against its plain PyTorch twin (also at the shapes the
+serving index gives them: ``SummaryConfig(64, 16, 8)``, 64-row flushes,
+32-row leaves, probe batches of 8), then drives the port's main
 path at the paper's deployment (``configs/coconut_paper.py``: L=256, w=16,
 b=8, leaf 2000) over 8,388,608 z-normalized random walks made on the card:
 the Coconut-Tree build, batched exact k-NN (Q=64, k=10) through the eager
@@ -72,7 +74,9 @@ flush, ``mindist_batch`` and the cross form every batch; the last batch
 equal to a brute force by the plain twin); an fp32 copy's prefill +
 decode equals its forward; then 32 steps through a 4-shard mesh store
 under ``build/serve_phase/`` (concurrent, tiered), reopened by a second
-run with every acknowledged row, and a budgeted pass.  Then
+run with every acknowledged row, a third threaded run at k 10 whose probes
+read the committed segments through the tiers (``unpack_mindist``; the
+last batch equal to a brute force), and a budgeted pass.  Then
 every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
@@ -152,6 +156,7 @@ SERVE_BATCH = 64
 SERVE_PROMPT = 256
 SERVE_STEPS = 128
 SERVE_BRANCH_STEPS = 32     # the sharded, reopened and budgeted runs
+SERVE_ALL_WINDOW = 1 << 20  # the tiered run's window: every row it holds
 SERVE_PROFILED_STEPS = 8    # the warm-up run, then the same run profiled
 SERVE_FP32_T = 64           # the fp32 cache-consistency prompt
 SERVE_FP32_TOL = 1e-3       # rtol = atol for prefill + decode vs forward
@@ -235,13 +240,12 @@ def max_abs_err(torch, a, b) -> float:
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
-def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
-    """Max abs error per kernel (the tolerance is 0: kernels and twins do
-    the same float operations in the same order, with no FMA)."""
-    err = {}
-
+def twin_checks(torch, err: dict):
+    """(launched, same): ``launched(out)`` synchronizes, so that a fault
+    shows up at its launch; ``same(name, a, b)`` records the max abs error
+    of ``name`` in ``err`` and fails unless it is 0."""
     def launched(out):
-        torch.cuda.synchronize()     # a fault shows up at its launch
+        torch.cuda.synchronize()
         return out
 
     def same(name, a, b):
@@ -249,6 +253,14 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
         err[name] = max(err.get(name, 0.0), e)
         check(e == 0, f"{name}: kernel differs from its plain twin by {e}")
 
+    return launched, same
+
+
+def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
+    """Max abs error per kernel (the tolerance is 0: kernels and twins do
+    the same float operations in the same order, with no FMA)."""
+    err = {}
+    launched, same = twin_checks(torch, err)
     rng = np.random.default_rng(SEED)
     for b in (1, 4, 8):
         for cfg in (S.SummaryConfig(64, 8, b), S.SummaryConfig(256, 16, b)):
@@ -379,7 +391,108 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
                             scale=cfg.series_len / cfg.segments, k=k)
                         for g, w_ in zip(got, want):
                             same("mesh_scan", g, w_)
+    serving_shapes(torch, np, S, ops, ref, pack_codes, dev, rng, err)
     return err
+
+
+def serving_shapes(torch, np, S, ops, ref, pack_codes, dev, rng,
+                   err: dict) -> None:
+    """Phase 2 at the shapes phase 19's index gives the kernels: the
+    serving config ``SummaryConfig(64, 16, 8)`` (the summarize tile's
+    generic path), flushes of 64 rows, leaves of 32, probe micro-batches
+    of 8 (and a leftover of 1), over z-normalized Gaussian rows as the
+    serve loop ingests and over walks; each kernel bit for bit against
+    its twin, and the storage kernels against the ones they must equal.
+    Max abs errors go into ``err``."""
+    launched, same = twin_checks(torch, err)
+    cfg = S.SummaryConfig(64, 16, 8)
+    L, w, b = cfg.series_len, cfg.segments, cfg.bits
+    lower, upper = S.region_bounds(b, device=dev)
+    bps = S.breakpoints(b, device=dev)
+    scale = L / w
+
+    def rows(n):
+        x = rng.standard_normal((n, L))
+        x = (x - x.mean(1, keepdims=True)) / (x.std(1, keepdims=True) + 1e-8)
+        return x.astype(np.float32)
+
+    for make in (rows, lambda n: walks(np, rng, n, L)):
+        for n in (32, 64):
+            xt = torch.from_numpy(make(n)).to(dev)
+            got = launched(ops.summarize_and_key(xt, cfg))
+            for g, w_ in zip(got, ref.fused_build_ref(xt, bps, segments=w,
+                                                      bits=b)):
+                same("fused_build", g, w_)
+            paa, codes = launched(ops.sax_summarize(xt, cfg))
+            r_paa, r_codes = ref.sax_summarize_ref(xt, bps, segments=w)
+            same("sax_summarize", paa, r_paa)
+            same("sax_summarize", codes, r_codes)
+            keys = launched(ops.zorder(codes, cfg))
+            same("zorder", keys, ref.zorder_ref(codes, w=w, b=b))
+            for g, w_ in zip((paa, codes, keys), got):
+                same("sax_summarize+zorder vs fused_build", g, w_)
+            packed = torch.from_numpy(
+                pack_codes(codes.cpu().numpy(), b)).to(dev)
+            for nq in (1, 8):
+                qt = torch.from_numpy(make(nq)).to(dev)
+                q_paas = S.paa(qt, w)
+                md = launched(ops.mindist_batch(q_paas, codes, cfg))
+                same("mindist_batch", md, ref.mindist_batch_ref(
+                    q_paas, codes, lower, upper, scale))
+                same("mindist_batch",
+                     launched(ops.mindist(q_paas[0], codes, cfg)), md[0])
+                mp = launched(ops.mindist_batch_packed(q_paas, packed, cfg))
+                same("unpack_mindist", mp, ref.mindist_batch_packed_ref(
+                    q_paas, packed, lower, upper, scale, w=w, b=b))
+                same("unpack_mindist vs mindist_batch", mp, md)
+                ed = launched(ops.batch_euclid_multi(qt, xt))
+                same("batch_euclid", ed, ref.batch_euclid_ref(qt, xt))
+                idx = torch.from_numpy(rng.integers(0, n, (nq, n))).to(dev)
+                same("batch_euclid_gather",
+                     launched(ops.batch_euclid_multi(qt, xt, idx=idx)),
+                     ref.batch_euclid_gather_ref(qt, xt, idx))
+                dead = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+                for bound in (ed.median(dim=1).values,
+                              torch.full((nq,), float("inf"), device=dev)):
+                    for k in (1, 10):
+                        got_s = launched(ops.scan_verify(
+                            qt, q_paas, codes, xt, bound, cfg, k=k,
+                            dead=dead))
+                        want = ref.scan_verify_ref(
+                            qt, q_paas, codes, xt, lower, upper, bound,
+                            dead.to(torch.int32), scale=scale, k=k)
+                        for g, w_ in zip(got_s, want):
+                            same("scan_verify", g, w_)
+    # the mesh launch over 4 shards of a few leaves each (ragged, with
+    # padding rows), as the serving branch's 4-shard store pins them
+    i32_min = np.iinfo(np.int32).min
+    for n_sh, cap in ((1, 64), (4, 32), (4, 96)):
+        xt = torch.from_numpy(rows(n_sh * cap)).to(dev)
+        _, codes = S.summarize(xt, cfg)
+        ids = torch.from_numpy(rng.permutation(n_sh * cap).astype(
+            np.int32)).to(dev).reshape(n_sh, cap)
+        ids[:, cap - 7:] = -1
+        ts = torch.from_numpy(rng.integers(0, 200, (n_sh, cap)).astype(
+            np.int32)).to(dev)
+        blocks = (codes.reshape(n_sh, cap, -1), xt.reshape(n_sh, cap, -1),
+                  ids, ts)
+        for nq in (1, 8):
+            qt = torch.from_numpy(rows(nq)).to(dev)
+            q_paas = S.paa(qt, w)
+            bound = ops.batch_euclid_multi(qt, xt).median(dim=1).values
+            bound[0] = float("inf")
+            for cut in (None, torch.from_numpy(rng.integers(
+                    0, 136, n_sh).astype(np.int32)).to(dev)):
+                for k in (1, 10):
+                    got = launched(ops.mesh_scan(
+                        qt, q_paas, *([b_] for b_ in blocks), cut, bound,
+                        cfg, k=k))
+                    tm = cut if cut is not None else torch.full(
+                        (n_sh,), i32_min, dtype=torch.int32, device=dev)
+                    want = ref.mesh_scan_ref(qt, q_paas, *blocks, tm, bound,
+                                             lower, upper, scale=scale, k=k)
+                    for g, w_ in zip(got, want):
+                        same("mesh_scan", g, w_)
 
 
 def walks(np, rng, n, L):
@@ -2211,7 +2324,9 @@ def serving_phase(torch, np) -> dict:
     window covers; (c) fp32 prefill + one decode step against a forward
     over T + 1 tokens; (d) 32 steps through a 4-shard mesh store under
     ``build/serve_phase/`` (concurrent, tiered), again on the same
-    directory, then a budgeted pass.  Short runs before (a) warm the loop
+    directory, a third time threaded at k 10 with a window over every row
+    (its probes read the committed segments through the tiered cache; the
+    last micro-batch against a brute force), then a budgeted pass.  Short runs before (a) warm the loop
     and give the device's busy share."""
     import dataclasses
 
@@ -2234,8 +2349,8 @@ def serving_phase(torch, np) -> dict:
           f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {V}; "
           f"{cfg.param_count() / 1e9:.2f} B params); reckoned: weights "
           f"{weights / 1e9:.2f} GB bf16, prefill logits [{B}, {T}, {V}] "
-          f"{logits_b / 1e9:.2f} GB, KV cache {kv_b / 1e9:.2f} GB (a "
-          f"layer's copy at each step), prefill scores a layer "
+          f"{logits_b / 1e9:.2f} GB, KV cache {kv_b / 1e9:.2f} GB, "
+          f"prefill scores a layer "
           f"{scores_b / 1e9:.2f} GB fp32; allocated before the phase "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     torch.cuda.reset_peak_memory_stats()
@@ -2351,6 +2466,8 @@ def serving_phase(torch, np) -> dict:
     b_steps = SERVE_BRANCH_STEPS
     bargv = ["--arch", SERVE_ARCH, "--steps", str(b_steps), "--batch",
              str(B), "--prompt-len", str(T)]
+    stored = []                     # every row the branch runs ingest
+    keep = lambda s, logits, h: stored.append(h)      # noqa: E731
     try:
         texts = []
         loader.LAUNCHES.clear()
@@ -2360,7 +2477,7 @@ def serving_phase(torch, np) -> dict:
             o, text = run_serve(SV, cfg, bargv + [
                 "--shards", str(SHARDS), "--scan-mode", "mesh",
                 "--concurrent", "--data-dir", str(work), "--cache-mb", "64"],
-                params=params)
+                params=params, on_step=keep)
             r = o["report"]
             mesh = r["query.mesh_launches_total"] - mesh0
             check(mesh > 0, f"serving run {run + 1}: no mesh launch ({r})")
@@ -2387,6 +2504,47 @@ def serving_phase(torch, np) -> dict:
         print(f"serving reopen: run 2 reopened the {acked} rows run 1 "
               f"acknowledged, and a third open finds all {n_all}; launches "
               f"{launches['branches']}")
+
+        # a third run on the same store, threaded, from another prompt,
+        # k = 10, with a window over every row: its probes reach the committed
+        # segments through the tiered cache (unpack_mindist on their
+        # packed codes); the last micro-batch against a brute force over
+        # every row the three runs ingested
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        prompt = torch.randint(0, cfg.vocab_unpadded, (B, T), generator=gen,
+                               device=dev)
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        o, _ = run_serve(SV, cfg, bargv + [
+            "--shards", str(SHARDS), "--scan-mode", "threaded",
+            "--concurrent", "--data-dir", str(work), "--cache-mb", "64",
+            "--knn-window", str(SERVE_ALL_WINDOW), "--knn-k", str(K)],
+            params=params, prompt=prompt, on_step=keep)
+        launches["tiers"] = dict(loader.LAUNCHES)
+        r = o["report"]
+        check(launches["tiers"].get("unpack_mindist", 0) > 0,
+              f"serving tiers: no unpack_mindist launch {launches['tiers']}")
+        check(r["cache.misses_total"] > 0 and r["cache.hits_total"] > 0,
+              f"serving tiers: no leaf read twice through the cache ({r})")
+        allrows = np.concatenate(stored)
+        check(allrows.shape[0] == 3 * acked,
+              f"serving tiers: {allrows.shape[0]} rows ingested")
+        probes, d, ids = o["answers"][-1]
+        ed = ref.batch_euclid_ref(torch.from_numpy(probes).to(dev),
+                                  torch.from_numpy(allrows).to(dev))
+        order = torch.sort(ed, dim=1, stable=True).indices[:, :K]
+        swaps = agrees_with_brute(
+            np, (torch.gather(ed, 1, order).cpu().numpy(),
+                 order.cpu().numpy()), (d, ids), "serving tiers")
+        print(f"serving tiers run 3: {time.perf_counter() - t0:.2f} s; "
+              f"window {SERVE_ALL_WINDOW} over the {3 * acked} rows, k "
+              f"{K}; the last micro-batch equals a brute force by the "
+              f"plain twin "
+              f"({swaps} tie swaps); cache hits {r['cache.hits_total']}, "
+              f"misses {r['cache.misses_total']}, promotions "
+              f"{r['cache.promotions_total']}, resident "
+              f"{r['cache.resident_bytes']} B; launches "
+              f"{launches['tiers']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     loader.LAUNCHES.clear()

@@ -192,10 +192,12 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *,
     """One-token decode step.
 
     x: [B, 1, d]; cache_k/v: [B, S, KV, D]; pos: the current absolute
-    position (an int).  Returns (out [B, 1, d], new_k, new_v); the caches
-    passed in are not written.  A sliding-window layer's cache is a ring
-    of ``window`` slots written at ``pos % S``, which is what keeps
-    hybrid decode state bounded.
+    position (an int).  Returns (out [B, 1, d], cache_k, cache_v): the new
+    position's K/V are written into their slot of the given caches in
+    place.  A sliding-window layer's cache is a ring of ``window`` slots
+    written at ``pos % S``, which is what keeps hybrid decode state
+    bounded.  Grouped-query heads read their KV head of the cache without
+    a repeated copy: query head ``h = kv * G + g`` reads KV head ``kv``.
     """
     B = x.shape[0]
     pos = int(pos)
@@ -203,8 +205,6 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *,
         # cross-attention reads the (static, pre-projected) encoder memory
         # from the cache; no RoPE on cross-attention queries
         q, _, _ = _project_qkv(x, p, cfg, None, xk=x)
-        k, v = cache_k, cache_v
-        new_k, new_v = cache_k, cache_v
     else:
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=x.device)
@@ -212,17 +212,14 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *,
         S = cache_k.shape[1]
         slot = pos % S if window else pos
         slot = min(max(slot, 0), S - 1)
-        new_k = cache_k.clone()
-        new_v = cache_v.clone()
-        new_k[:, slot: slot + 1] = k1.to(cache_k.dtype)
-        new_v[:, slot: slot + 1] = v1.to(cache_v.dtype)
-        k, v = new_k, new_v
-    kr = _repeat_kv(k.to(x.dtype), cfg.n_heads)
-    vr = _repeat_kv(v.to(x.dtype), cfg.n_heads)
-    D = q.shape[-1]
-    scores = torch.einsum("bthd,bshd->bhts", q, kr).float()
-    scores = scores * (D ** -0.5)
-    S = kr.shape[1]
+        cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
+    S, KV, D = cache_k.shape[1], cache_k.shape[2], q.shape[-1]
+    H = cfg.n_heads
+    qg = q.reshape(B, 1, KV, H // KV, D)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg,
+                          cache_k.to(x.dtype)).float()
+    scores = scores.reshape(B, H, 1, S) * (D ** -0.5)
     spos = torch.arange(S, device=x.device)[None, None, None, :]
     if memory is not None:
         mask = None
@@ -236,6 +233,8 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *,
     if mask is not None:
         scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bhts,bshd->bthd", probs, vr)
-    out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"]
-    return out, new_k, new_v
+    o = torch.einsum("bkgts,bskd->btkgd",
+                     probs.reshape(B, KV, H // KV, 1, S),
+                     cache_v.to(x.dtype))
+    out = o.reshape(B, 1, H * cfg.head_dim_) @ p["wo"]
+    return out, cache_k, cache_v

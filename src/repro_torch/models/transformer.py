@@ -273,7 +273,10 @@ class Model(nn.Module):
     def decode_step(self, cache, tokens, pos: int):
         """One-token decode.  tokens: [B, 1]; pos: absolute position.
 
-        Returns (logits [B, 1, V], new_cache); ``cache`` is not written.
+        Returns (logits [B, 1, V], new_cache).  The attention layers'
+        K/V caches are written in place (the new position's slot) and
+        carried into ``new_cache``; the recurrent layers' states are new
+        tensors.
         """
         cfg = self.cfg
         x = self._embed(tokens)

@@ -74,10 +74,17 @@ def test_multi_step_decode_matches_forward(arch):
 
 
 def test_decode_leaves_the_cache_it_was_given():
+    """A decode step writes the new position's K/V into the slot ``pos``
+    of every attention layer's cache, in place, and leaves every other
+    entry of the cache it was given as it was."""
     cfg, model, tokens, _ = _setup("llama3.2-1b", T + 1, seed=2)
     _, cache = make_prefill_step(model)({"tokens": tokens[:, :T]})
     cache = pad_cache(model, cache, extra=2)
-    before = [t.clone() for t in cache["layers"][0]]
-    make_serve_step(model)(cache, tokens[:, T:], T)
-    for a, b in zip(before, cache["layers"][0]):
-        assert torch.equal(a, b)
+    before = [[t.clone() for t in st] for st in cache["layers"]]
+    _, new = make_serve_step(model)(cache, tokens[:, T:], T)
+    for old, given, out in zip(before, cache["layers"], new["layers"]):
+        for a, b, c in zip(old, given, out):
+            assert c is b
+            assert torch.equal(a[:, :T], b[:, :T])
+            assert torch.equal(a[:, T + 1:], b[:, T + 1:])
+            assert not torch.equal(a[:, T], b[:, T])
