@@ -77,6 +77,15 @@ under ``build/serve_phase/`` (concurrent, tiered), reopened by a second
 run with every acknowledged row, a third threaded run at k 10 whose probes
 read the committed segments through the tiers (``unpack_mindist``; the
 last batch equal to a brute force), and a budgeted pass.  Then
+training (``launch/train.py``'s ``train``): ``llama3.2-1b`` at its
+published width in bf16 takes 20 AdamW steps of 8 x 1024 tokens with
+remat (tokens/s, seconds a step, model-FLOP share, busy share and peak
+memory printed; the loss falls); SMOKE dense and MoE steps with two
+microbatches give the CPU's loss, gradients and parameters on the card;
+the fault-tolerant loop restarts from a checkpoint to the uninterrupted
+run's state, a checkpoint round-trips bit for bit and restores onto the
+CPU; and a four-stage GPipe forward on one card equals the sequential
+pass.  No kernel is on the training path.  Then
 every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
@@ -160,6 +169,20 @@ SERVE_ALL_WINDOW = 1 << 20  # the tiered run's window: every row it holds
 SERVE_PROFILED_STEPS = 8    # the warm-up run, then the same run profiled
 SERVE_FP32_T = 64           # the fp32 cache-consistency prompt
 SERVE_FP32_TOL = 1e-3       # rtol = atol for prefill + decode vs forward
+# phase 20: training at llama3.2-1b's published width, and the trainer's
+# parts at SMOKE width
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 20
+TRAIN_TIMED_FROM = 2        # p50 over steps 3..20 (the first two warm up)
+TRAIN_PROFILED_STEPS = 3
+TRAIN_SMOKE_ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m")
+TRAIN_SMOKE_TOL = 1e-4      # rtol = atol, card vs CPU, TF32 off
+TRAIN_FAULT_STEP = 7        # the injected fault; checkpoints every 5 steps
+TRAIN_RESUME_TOL = 2e-5     # the reference test's resume tolerance
+PIPE_STAGES, PIPE_M, PIPE_B, PIPE_D = 4, 8, 64, 2048
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 (data sheet, 700 W)
 
 
 def fail(msg: str) -> None:
@@ -2561,6 +2584,301 @@ def serving_phase(torch, np) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 20: training — the train step at full width, the trainer's parts
+# ---------------------------------------------------------------------------
+
+def run_train(LT, cfg, argv, **kw):
+    """``train`` of ``cfg`` under the command line ``argv``, its printed
+    lines echoed; returns its result."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = LT.train(cfg, LT.build_parser().parse_args(argv), **kw)
+    for ln in buf.getvalue().splitlines():
+        print(f"  train: {ln[:400]}")
+    return out
+
+
+def _state_pairs(a, b, prefix=""):
+    """(path, tensor of a, tensor of b) over two states of one layout."""
+    for k, v in a.items():
+        if isinstance(v, dict):
+            yield from _state_pairs(v, b[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v, b[k]
+
+
+def training_phase(torch, np) -> dict:
+    """``launch/train.py`` on the card: (a) ``llama3.2-1b`` at its
+    published width in bf16, 20 steps of batch 8 x 1024 tokens with remat
+    and the registry's microbatches, AdamW lr 1e-3 with 10 warmup steps
+    and no checkpoint in the run: tokens/s and seconds a step (p50 of
+    steps 3-20, each ending in its loss read-back), model FLOP/s and its
+    share of the dense bf16 peak, the busy share of 3 profiled steps and
+    the peak memory; every loss and grad norm finite, the last loss below
+    the first.  (b) fp32 SMOKE dense and MoE steps with 2 microbatches and
+    remat on the card and on the CPU from the same weights and batch: the
+    loss, every gradient and every updated parameter at rtol = atol 1e-4.
+    (c) the fault-tolerant loop at SMOKE width: a fault at step 7 with
+    checkpoints every 5 steps restarts from step 5 and ends at the state
+    of an uninterrupted 12-step run (2e-5); a checkpoint round-trips bit
+    for bit and restores onto the CPU.  (d) ``pipeline_forward`` over four
+    stages of ``tanh(x @ w)`` on one card equals the sequential pass."""
+    import tempfile
+
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import TRAIN_MICROBATCHES
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.kernels import loader
+    from repro_torch.launch import flops as FL
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.models import (Model, init_train_state,
+                                    loss_and_grads, make_train_step)
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.data.tokens import TokenPipeline
+    dev = torch.device(DEVICE)
+    launches = {}
+    work = ROOT / "build" / "train_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        # -- (a) full width ----------------------------------------------------
+        cfg = get(TRAIN_ARCH)
+        B, T, V = TRAIN_BATCH, TRAIN_SEQ, cfg.vocab
+        n = cfg.param_count()
+        micro = TRAIN_MICROBATCHES.get(TRAIN_ARCH, 1)
+        saved = cfg.n_layers * B * T * cfg.d_model * 2
+        print(f"training: {TRAIN_ARCH} at its published width "
+              f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
+              f"vocab {V}; {n / 1e9:.2f} B params, {cfg.param_dtype}); "
+              f"batch {B} x seq {T}, remat, microbatches {micro}; "
+              f"reckoned: weights {2 * n / 1e9:.1f} GB, grads "
+              f"{2 * n / 1e9:.1f} GB, fp32 moments {8 * n / 1e9:.1f} GB, "
+              f"remat's saved layer inputs {saved / 1e9:.2f} GB, logits "
+              f"{B * T * V * 2 / 1e9:.1f} GB bf16 + "
+              f"{B * T * V * 4 / 1e9:.1f} GB fp32; allocated before the "
+              f"phase {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                "--batch", str(B), "--seq", str(T), "--ckpt-dir",
+                str(work / "full"), "--checkpoint-every",
+                str(TRAIN_STEPS + 1)]
+        loader.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = run_train(LT, cfg, argv, device=dev, remat=True,
+                        microbatches=micro, log_every=1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches["full"] = dict(loader.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        rt = out["runtime"]
+        check(out["report"]["final_step"] == TRAIN_STEPS
+              and out["report"]["restarts"] == 0
+              and out["report"]["checkpoints"] == 0,
+              f"training: report {out['report']}")
+        log = rt.metrics_log
+        losses = [r["loss"] for r in log]
+        norms = [r["grad_norm"] for r in log]
+        check(len(log) == TRAIN_STEPS, f"training: {len(log)} logged steps")
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"training: a loss or grad norm is not finite: {losses} "
+              f"{norms}")
+        check(losses[-1] < losses[0],
+              f"training: the loss did not fall: {losses}")
+        secs = rt.durations[TRAIN_TIMED_FROM:]
+        step_s = float(np.median(secs))
+        tokens = B * T
+        mflops = FL.model_flops_6nd(cfg, B, T, "train")
+        sflops = FL.step_flops(cfg, B, T, "train", remat=True)
+        print(f"training: {TRAIN_STEPS} steps in {run_s:.1f} s (weights "
+              f"drawn, first steps included); step seconds p50 "
+              f"{step_s:.4f} over steps {TRAIN_TIMED_FROM + 1}-"
+              f"{TRAIN_STEPS} (min {min(secs):.4f}, max {max(secs):.4f}; "
+              f"step 1 {rt.durations[0]:.2f} s, step 2 "
+              f"{rt.durations[1]:.3f} s); {tokens / step_s:.0f} tokens/s")
+        print(f"training: model FLOP/s (6ND, {mflops / 1e12:.1f} TFLOP a "
+              f"step) {mflops / step_s / 1e12:.1f} TFLOP/s = "
+              f"{100 * mflops / step_s / BF16_OPS_PER_S:.1f}% of the "
+              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak; the "
+              f"executed step's analytic FLOPs (remat: 4 forwards) "
+              f"{sflops / 1e12:.1f} TFLOP, {sflops / step_s / 1e12:.1f} "
+              f"TFLOP/s")
+        print(f"training: loss {losses[0]:.4f} -> {losses[-1]:.4f}; grad "
+              f"norm {norms[0]:.3f} -> {norms[-1]:.3f}; "
+              f"peak memory {peak / 2**30:.1f} GiB "
+              f"({(peak - before) / 2**30:.1f} GiB above the "
+              f"{before / 2**30:.1f} GiB allocated before); launches "
+              f"{launches['full']}")
+        check(not launches["full"], "training launched a kernel: "
+              f"{launches['full']}")
+        step, data, state = out["train_step"], out["data"], rt.state
+        batches = [data(s) for s in range(TRAIN_PROFILED_STEPS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b_ in batches:
+            state, m_ = step(state, b_)
+        float(m_["loss"])
+        plain_s = time.perf_counter() - t0
+        busy_ms, _ = device_profile(
+            torch, lambda: [step(state, b_) for b_ in batches], top=8)
+        print(f"training device busy (torch.profiler, "
+              f"{TRAIN_PROFILED_STEPS} steps): {busy_ms:.1f} ms of device "
+              f"time over {plain_s * 1e3:.1f} ms of unprofiled wall "
+              f"({100 * busy_ms / (plain_s * 1e3):.2f}%)")
+        del out, rt, step, data, state, batches, m_
+        torch.cuda.empty_cache()
+
+        # -- (b) card vs CPU at SMOKE width ------------------------------------
+        for arch in TRAIN_SMOKE_ARCHS:
+            scfg = get(arch, smoke=True)
+            cpu_model = Model(scfg, device="cpu", seed=0)
+            card_model = Model(scfg, device=dev, params={
+                k: v.detach().clone() for k, v in
+                cpu_model.state_dict().items()})
+            pipe = TokenPipeline(scfg.vocab_unpadded, 4, 32, seed=3,
+                                 device="cpu")
+            batch = pipe(0)
+            res = []
+            for model, where in ((cpu_model, "cpu"), (card_model, dev)):
+                st = init_train_state(model)
+                b_ = {k: v.to(where) for k, v in batch.items()}
+                loss, parts, grads = loss_and_grads(
+                    model, st["params"], b_, microbatches=2, remat=True)
+                step = make_train_step(model, microbatches=2, remat=True)
+                st, met = step(st, b_)
+                res.append((loss, parts, grads, st, met))
+            (lc, pc, gc, sc, mc), (lg, pg, gg, sg, mg) = res
+            worst = {}
+
+            def close(a, b, what):
+                a, b = a.detach().cpu(), b.detach().cpu()
+                check(torch.allclose(b, a, rtol=TRAIN_SMOKE_TOL,
+                                     atol=TRAIN_SMOKE_TOL),
+                      f"training {arch}: {what} card vs CPU: max abs err "
+                      f"{float((a - b).abs().max())}")
+                kind = what.split(" ")[0]
+                worst[kind] = max(worst.get(kind, 0.0),
+                                  float((a - b).abs().max()))
+
+            close(lc, lg, "loss")
+            for k in pc:
+                close(pc[k], pg[k], f"loss {k}")
+            for k in gc:
+                close(gc[k], gg[k], f"grad {k}")
+            for k in sc["params"]:
+                close(sc["params"][k], sg["params"][k], f"param {k}")
+            close(mc["grad_norm"], mg["grad_norm"], "loss grad_norm")
+            print(f"training {arch} (SMOKE, fp32, microbatches 2, remat): "
+                  f"card equals CPU: loss {float(lg):.6f}, "
+                  f"{len(gc)} gradients and parameters; max abs err "
+                  f"{worst}")
+
+        # -- (c) the fault-tolerant loop ---------------------------------------
+        scfg = get(TRAIN_ARCH, smoke=True)
+        base = ["--arch", TRAIN_ARCH, "--steps", "12", "--batch", "4",
+                "--seq", "16"]
+
+        def uninterrupted(tag):
+            return run_train(LT, scfg, base + [
+                "--ckpt-dir", str(work / tag), "--checkpoint-every", "100"],
+                device=dev)["runtime"].state
+
+        ref_a, ref_b = uninterrupted("plain_a"), uninterrupted("plain_b")
+        bitwise = all(torch.equal(a, b) for _, a, b in
+                      _state_pairs(ref_a, ref_b))
+        print(f"training fault loop: two uninterrupted 12-step runs "
+              f"{'are' if bitwise else 'are NOT'} bit for bit equal")
+        det = not bitwise
+        if det:
+            # the scatter-adds of the backward (embedding, gathers) use
+            # atomics; this part alone runs their deterministic versions
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            ref_a = uninterrupted("plain_det")
+        try:
+            crashed = []
+
+            def fault(s):
+                if s == TRAIN_FAULT_STEP and not crashed:
+                    crashed.append(s)
+                    raise RuntimeError(f"injected fault at {s}")
+
+            o = run_train(LT, scfg, base + [
+                "--ckpt-dir", str(work / "fault"), "--checkpoint-every", "5"],
+                device=dev, fault_hook=fault)
+        finally:
+            if det:
+                torch.use_deterministic_algorithms(False)
+        rep = o["report"]
+        check(rep["final_step"] == 12 and rep["restarts"] == 1
+              and rep["checkpoints"] >= 2, f"training fault loop: {rep}")
+        mgr = o["runtime"].ckpt
+        check(mgr.steps()[-1] == 10 and 5 in mgr.steps(),
+              f"training fault loop: checkpoints {mgr.steps()}")
+        got = o["runtime"].state
+        err = 0.0
+        for k, a, b in _state_pairs(ref_a, got):
+            a32, b32 = a.detach().double(), b.detach().double()
+            check(torch.allclose(b32, a32, rtol=TRAIN_RESUME_TOL,
+                                 atol=TRAIN_RESUME_TOL),
+                  f"training fault loop: {k} differs from the "
+                  f"uninterrupted run")
+            err = max(err, float((a32 - b32).abs().max()))
+        same = all(torch.equal(a, b) for _, a, b in _state_pairs(ref_a, got))
+        ck = CheckpointManager(work / "roundtrip", async_save=False)
+        ck.save(12, got)
+        back, at = ck.restore(got)
+        check(at == 12 and all(torch.equal(a, b) and a.device == b.device
+                               for _, a, b in _state_pairs(got, back)),
+              "training: the checkpoint round trip is not bit for bit")
+        host, _ = ck.restore(got, device="cpu")
+        check(all(b.device.type == "cpu" and torch.equal(a.cpu(), b)
+                  for _, a, b in _state_pairs(got, host)),
+              "training: restore(device='cpu') differs")
+        print(f"training fault loop: a fault at step {TRAIN_FAULT_STEP}, "
+              f"restarted from step 5, ended at step 12 with the "
+              f"uninterrupted run's state (max abs err {err:.3g}, "
+              f"{'bit for bit' if same else 'not bit for bit'}"
+              f"{', deterministic algorithms' if det else ''}); report "
+              f"{rep}; a checkpoint round-trips bit for bit and restores "
+              f"onto the CPU")
+
+        # -- (d) the GPipe forward ---------------------------------------------
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        S, M, PB, D = PIPE_STAGES, PIPE_M, PIPE_B, PIPE_D
+        W = torch.randn((S, D, D), generator=gen, device=dev) * D ** -0.5
+        xs = torch.randn((M, PB, D), generator=gen, device=dev)
+        mesh = make_stage_mesh(S)
+        check(len(mesh) == S and len(set(mesh)) == 1
+              and mesh[0].type == "cuda", f"stage mesh {mesh}")
+
+        def stage(w, x):
+            return torch.tanh(x @ w)
+
+        t0 = time.perf_counter()
+        y = pipeline_forward(mesh, stage, S)(W, xs)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        want = xs
+        for s_ in range(S):
+            want = stage(W[s_], want)
+        check(torch.allclose(y, want, rtol=1e-5, atol=1e-5),
+              f"pipeline: max abs err {float((y - want).abs().max())}")
+        print(f"training pipeline: {S} stages over {mesh}, M={M} "
+              f"microbatches of [{PB}, {D}] fp32 in {M + S - 1} ticks "
+              f"({pipe_s * 1e3:.1f} ms, first call) equal the sequential "
+              f"pass (max abs err {float((y - want).abs().max()):.3g})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     import torch
@@ -2830,6 +3148,11 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_l = serving_phase(torch, np)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 20: training at llama3.2-1b's width, and the trainer's parts ------------
+    t0 = time.perf_counter()
+    train_l = training_phase(torch, np)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 9: each kernel at the main path's shapes ----------------------------------
     timer = Timer(torch)
@@ -3189,7 +3512,7 @@ def main() -> int:
                   *budget_l.values(), *trie_l.values(),
                   *sharded_l.values(), *store_l.values(),
                   *static_l.values(), *obs_l.values(),
-                  *serve_l.values()):
+                  *serve_l.values(), *train_l.values()):
         for name, v in phase.items():
             launches[name] = launches.get(name, 0) + v
     launches["unpack_mindist_hot"] = \

@@ -8,6 +8,9 @@ their launches; the per-device ``[Q, k]`` lists are gathered to the first
 device, which selects.  That is the one-process counterpart of
 ``shard_map`` with an ``all_gather`` merge, so the reference's
 ``distributed/compat.py`` (its ``shard_map`` shim) has no counterpart.
+
+A pipeline's mesh (``distributed/pipeline.py``) is the same kind of tuple
+with one entry a stage: :func:`make_stage_mesh`.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["SCAN_AXIS", "make_scan_mesh"]
+__all__ = ["SCAN_AXIS", "make_scan_mesh", "make_stage_mesh"]
 
 # the name of the mesh's one axis: the shard axis of the pinned stacks
 SCAN_AXIS = "shard"
@@ -47,3 +50,24 @@ def make_scan_mesh(n_shards: int, *,
     d = max(x for x in range(1, min(n_shards, len(devices)) + 1)
             if n_shards % x == 0)
     return tuple(devices[:d])
+
+
+def make_stage_mesh(n_stages: int, *,
+                    devices: Optional[Sequence] = None
+                    ) -> Tuple[torch.device, ...]:
+    """One device a pipeline stage: ``n_stages`` entries over ``devices``
+    (every visible CUDA device by default) in contiguous runs, stage s on
+    device ``s * D // n_stages``; on one card every stage is ``cuda:0``."""
+    if n_stages < 1:
+        raise ValueError(f"n_stages must be >= 1, got {n_stages}")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass the "
+                               "pipeline's devices")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("a stage mesh needs at least one device")
+    D = len(devices)
+    return tuple(devices[s * D // n_stages] for s in range(n_stages))

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope", "gated_mlp", "gated_mlp_init", "dense_init",
-           "Initializer", "softplus", "dtype_of"]
+           "Initializer", "softplus", "dtype_of", "dtype_anchor"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -21,6 +21,31 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown param_dtype {name!r}")
     return dt
+
+
+class _Anchor(torch.autograd.Function):
+    """Identity forward; the backward casts the cotangent to the primal's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def dtype_anchor(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward casts the cotangent to the primal dtype.
+
+    Placed at layer-group boundaries, as in the reference, it keeps an
+    fp32 cotangent (from the fp32 loss, norm or router internals) from
+    widening the backward activations of a bf16 model.  PyTorch's
+    autograd engine already casts every gradient to its input's dtype;
+    the anchor states the cast where the reference states it."""
+    return _Anchor.apply(x)
 
 
 class Initializer:

@@ -1,29 +1,178 @@
-"""Step factories for serving: prefill_step and serve_step (single-token
-decode with cache), plus the forward cross-entropy.
+"""Step factories: train_step (CE + AdamW + microbatching + remat),
+prefill_step, and serve_step (single-token decode with cache).
 
 Batch layout, as in the reference:
 
-    prefill: {"tokens": [B, T] int64, "frontend": [B, P, d] (vlm/audio)}
+    train:   {"tokens": [B, T] int64, "labels": [B, T] int64,
+              "frontend": [B, P, d] f32 (vlm/audio only)}
+    prefill: {"tokens": [B, T], "frontend": ...}
     decode:  (cache, tokens [B, 1], pos int)
 
-The model holds its weights, so the steps take no params argument.
+The model holds its weights, so the serving steps take no params
+argument.  A train state is ``{"params": {name: tensor}, "opt": {"m",
+"v", "step"}}``: ``init_train_state`` takes the model's own parameters,
+and a step binds the state's tensors into the model first, so a restored
+state (new tensors, maybe on another device) trains the same model.  A
+step updates the state's tensors in place and returns the same dict.
+
+With ``microbatches=k`` the batch is cut into k parts of ``B // k`` rows
+and the gradients are accumulated in ``accum_dtype`` (a Python loop, the
+reference's ``lax.scan``): the activation working set shrinks k-fold
+while the optimizer sees the full-batch gradient.
 """
 from __future__ import annotations
 
-import torch
+from typing import Dict, Optional
 
+import torch
+from torch import nn
+
+from ..train.optimizer import AdamWConfig, adamw_init, adamw_update
 from .transformer import Model
 
-__all__ = ["cross_entropy", "make_prefill_step", "make_serve_step",
+__all__ = ["cross_entropy", "make_train_step", "make_prefill_step",
+           "make_serve_step", "init_train_state", "loss_and_grads",
            "pad_cache"]
+
+_AUX_LB_WEIGHT = 0.01
+_AUX_Z_WEIGHT = 1e-3
+
+
+class _Promote(torch.autograd.Function):
+    """Cast to fp32; the backward returns the cotangent in the primal's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.to(torch.float32) if x.dtype != torch.float32 \
+            else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def _promote_f32(x: torch.Tensor) -> torch.Tensor:
+    """Cast to fp32 whose *backward* returns the original dtype: the fp32
+    loss cotangent does not run down the residual stream in fp32.  The
+    forward math is unchanged; only the cotangent is cast."""
+    return _Promote.apply(x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE, in fp32 (forward only)."""
-    logits = logits.float()
+    """Mean next-token CE in fp32 math, original-dtype backward."""
+    logits = _promote_f32(logits)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+def _loss_fn(model: Model, batch, remat: bool):
+    logits, _, aux = model.forward(
+        batch["tokens"], frontend_embeds=batch.get("frontend"), remat=remat)
+    labels = batch["labels"]
+    T = labels.shape[1]
+    logits = logits[:, -T:]          # vlm/audio: loss on text positions only
+    loss = cross_entropy(logits, labels)
+    total = loss + _AUX_LB_WEIGHT * aux["load_balance"] \
+        + _AUX_Z_WEIGHT * aux["router_z"]
+    return total, {"ce": loss, **aux}
+
+
+def _bind(model: Model, params: Dict[str, torch.Tensor]) -> None:
+    """Make ``params`` the model's parameters, trainable.  A tensor that is
+    not yet one of the model's (a restored state's) is wrapped in a
+    parameter sharing its storage, and the state keeps that parameter."""
+    for name, t in params.items():
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        if mod._parameters.get(attr) is t:
+            continue
+        if attr not in mod._parameters:
+            raise KeyError(f"{name} is not a parameter of {model.cfg.name}")
+        p = t if isinstance(t, nn.Parameter) else nn.Parameter(t)
+        p.requires_grad_(True)
+        mod._parameters[attr] = p
+        params[name] = p
+
+
+def init_train_state(model: Model,
+                     opt_cfg: Optional[AdamWConfig] = None) -> dict:
+    """The model's parameters, made trainable, and zero AdamW moments in
+    ``opt_cfg.moment_dtype``.  Serving models keep ``requires_grad``
+    off; this is where training turns it on."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    return {"params": params,
+            "opt": adamw_init(params, opt_cfg.moment_dtype)}
+
+
+def _grad(loss: torch.Tensor, leaves):
+    """d loss / d leaf for every leaf; zeros for a leaf the loss does not
+    reach (a frontend adapter with no frontend in the batch), as the
+    reference's ``value_and_grad`` gives."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
+def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch, *,
+                   microbatches: int = 1, remat: bool = True,
+                   accum_dtype=torch.float32):
+    """(loss, parts, grads) of the training loss at ``params``: the
+    gradient half of a train step.  ``grads`` is ``{name: tensor}`` in the
+    parameters' dtype, or in ``accum_dtype`` when ``microbatches > 1``
+    (the parts summed, then divided once)."""
+    _bind(model, params)
+    names = list(params)
+    leaves = [params[n] for n in names]
+    if microbatches == 1:
+        loss, parts = _loss_fn(model, batch, remat)
+        grads = _grad(loss, leaves)
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
+            dict(zip(names, grads))
+    g_sum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+             for p in leaves]
+    l_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    parts_all = []
+    for i in range(microbatches):
+        mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                           + tuple(v.shape[1:]))[i]
+              for k, v in batch.items()}
+        loss, parts = _loss_fn(model, mb, remat)
+        grads = _grad(loss, leaves)
+        for a, g in zip(g_sum, grads):
+            a.add_(g.to(accum_dtype))
+        l_sum = l_sum + loss.detach()
+        parts_all.append({k: v.detach() for k, v in parts.items()})
+    grads = {n: a / microbatches for n, a in zip(names, g_sum)}
+    parts = {k: torch.stack([p[k] for p in parts_all]).mean()
+             for k in parts_all[0]}
+    return l_sum / microbatches, parts, grads
+
+
+def make_train_step(model: Model, *, opt_cfg: Optional[AdamWConfig] = None,
+                    microbatches: int = 1, remat: bool = True,
+                    accum_dtype=torch.float32):
+    """Build ``train_step(state, batch) -> (state, metrics)``; the metrics
+    are the reference's: ``loss``, ``ce``, ``load_balance``,
+    ``router_z``, ``grad_norm`` and ``lr`` (0-d tensors on the device)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, parts, grads = loss_and_grads(
+            model, params, batch, microbatches=microbatches, remat=remat,
+            accum_dtype=accum_dtype)
+        new_params, new_opt, om = adamw_update(params, grads, state["opt"],
+                                               opt_cfg)
+        metrics = {"loss": loss, **parts, **om}
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: Model):

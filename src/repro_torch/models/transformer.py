@@ -9,6 +9,13 @@ the reference's layer order, and the stack is a Python loop.
 ``params_from_reference`` splits the reference's stacked leaves layer by
 layer.
 
+Training.  ``forward(..., remat=True)`` recomputes each pattern group's
+activations in the backward (``torch.utils.checkpoint``, the reference's
+rematerialization with nothing saveable), and a ``dtype_anchor`` opens
+every pattern group, as in the reference's ``pattern_block``; the
+remainder layers have neither.  The weights are parameters that take no
+gradient until ``models.steps.init_train_state`` makes them trainable.
+
 Modality frontends are stubs: precomputed patch/frame embeddings at
 d_model come in beside the tokens and a linear adapter maps them into the
 residual stream.  For enc-dec (seamless) the encoder consumes the frames
@@ -21,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import _device_for
 from . import attention as ATT
@@ -28,8 +36,8 @@ from . import moe as MOE
 from . import rglru as RG
 from . import ssm as SSM
 from .config import ModelConfig
-from .layers import (Initializer, dense_init, dtype_of, gated_mlp,
-                     gated_mlp_init, rms_norm)
+from .layers import (Initializer, dense_init, dtype_anchor, dtype_of,
+                     gated_mlp, gated_mlp_init, rms_norm)
 
 __all__ = ["Model", "params_from_reference"]
 
@@ -37,7 +45,8 @@ _KIND_HAS_FFN = {"attn": True, "moe": True, "rec": True, "ssm": False}
 
 
 def _fixed(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: a parameter that takes no gradient."""
+    """A serving weight: a parameter that takes no gradient (until
+    ``init_train_state`` makes it trainable)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -103,6 +112,10 @@ class Model(nn.Module):
         dtype = dtype_of(cfg.param_dtype)
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
+        # the reference's stack plan: layers in groups of the block pattern
+        # (one layer when there is none), then the remainder layers
+        self.pattern = tuple(cfg.block_pattern or (self.kinds[0],))
+        self.n_full = len(self.kinds) // len(self.pattern)
         # given weights are assigned after the structure is laid out on
         # the meta device; otherwise every weight is drawn here
         where = torch.device("meta") if params is not None else dev
@@ -220,7 +233,8 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------- full passes
     def forward(self, tokens, *, frontend_embeds=None,
-                collect_cache: bool = False, bidirectional: bool = False):
+                collect_cache: bool = False, bidirectional: bool = False,
+                remat: bool = False):
         """Full-sequence forward.
 
         Returns (logits, cache_or_None, aux) with aux = dict of summed MoE
@@ -228,12 +242,14 @@ class Model(nn.Module):
         ``{"layers": [state per layer], "memory": encoder output or
         None}``.  An enc-dec decoder is causal whatever ``bidirectional``
         says (the reference's encoder resets its flag before the decoder
-        runs); the encoder itself is always bidirectional.
+        runs); the encoder itself is always bidirectional.  ``remat``
+        recomputes each pattern group (and each encoder layer) in the
+        backward instead of keeping its activations.
         """
         cfg = self.cfg
         memory = None
         if cfg.is_encdec:
-            memory = self._encode(frontend_embeds)
+            memory = self._encode(frontend_embeds, remat)
             x = self._embed(tokens)
             bidirectional = False
         elif cfg.frontend != "none" and frontend_embeds is not None:
@@ -244,9 +260,33 @@ class Model(nn.Module):
 
         positions = torch.arange(x.shape[1], device=x.device)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def pattern_block(x, layers):
+            """One group: (x, its layers' states, its summed aux pair)."""
+            x = dtype_anchor(x)          # keep the backward in bf16
+            states, lb, rz = [], zero, zero
+            for layer in layers:
+                x, st, aux = self._block(x, layer, positions=positions,
+                                         causal=not bidirectional,
+                                         memory=memory,
+                                         collect_cache=collect_cache)
+                lb, rz = lb + aux[0], rz + aux[1]
+                states.append(st)
+            return x, states, lb, rz
+
+        P = len(self.pattern)
         lb, rz = zero, zero
         states = []
-        for layer in self.layers:
+        for g in range(self.n_full):
+            group = self.layers[g * P:(g + 1) * P]
+            if remat:
+                out = checkpoint(pattern_block, x, group, use_reentrant=False)
+            else:
+                out = pattern_block(x, group)
+            x, sts, g_lb, g_rz = out
+            lb, rz = lb + g_lb, rz + g_rz
+            states.extend(sts)
+        for layer in self.layers[self.n_full * P:]:      # the remainder
             x, st, aux = self._block(x, layer, positions=positions,
                                      causal=not bidirectional,
                                      memory=memory,
@@ -259,14 +299,20 @@ class Model(nn.Module):
                  else None)
         return logits, cache, {"load_balance": lb, "router_z": rz}
 
-    def _encode(self, frames):
-        """Encoder stack over frontend frames (bidirectional attention)."""
+    def _encode(self, frames, remat: bool = False):
+        """Encoder stack over frontend frames (bidirectional attention);
+        with ``remat`` each layer is recomputed in the backward."""
         x = (self._frontend(frames) if hasattr(self, "frontend_adapter")
              else frames)
         positions = torch.arange(x.shape[1], device=x.device)
+
+        def body(x, layer):
+            return self._block(x, layer, positions=positions,
+                               causal=False)[0]
+
         for layer in self.enc_layers:
-            x, _, _ = self._block(x, layer, positions=positions,
-                                  causal=False)
+            x = (checkpoint(body, x, layer, use_reentrant=False) if remat
+                 else body(x, layer))
         return rms_norm(x, self.enc_norm, self.cfg.rms_eps)
 
     # ------------------------------------------------------------ decode path

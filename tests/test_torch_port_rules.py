@@ -36,6 +36,10 @@ SERVING = ["repro_torch.models", "repro_torch.models.config",
            "repro_torch.models.steps", "repro_torch.configs.registry",
            "repro_torch.launch.serve",
            *(f"repro_torch.configs.{m}" for m in ARCH_MODULES)]
+TRAINING = ["repro_torch.train.optimizer", "repro_torch.train.compression",
+            "repro_torch.train.checkpoint", "repro_torch.train.runtime",
+            "repro_torch.data.tokens", "repro_torch.distributed.pipeline",
+            "repro_torch.launch.train", "repro_torch.launch.flops"]
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.kernels", "repro_torch.kernels.ops",
            "repro_torch.kernels.loader", "repro_torch.kernels.sax_summarize",
@@ -56,7 +60,8 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.query.mesh", "repro_torch.distributed.sharded_index",
            "repro_torch.obs.profile", "repro_torch.obs.analytics",
            "repro_torch.obs.health", "repro_torch.obs.httpd",
-           "repro_torch.obs.validate", *SERVING]
+           "repro_torch.obs.validate", *SERVING, "repro_torch.train",
+           *TRAINING]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -101,6 +106,25 @@ def test_serving_modules_sit_at_the_references_paths_and_name_no_jax():
         if rel.name != "__init__.py":
             assert (ref_root / rel).exists(), rel
         assert not word.search(f.read_text()), f
+
+
+def test_training_modules_sit_at_the_references_paths_and_name_no_jax():
+    """``train/``, ``data/tokens.py``, ``distributed/pipeline.py`` and
+    ``launch/{train,flops}.py`` exist at the reference's relative paths,
+    and their text names neither jax, the reference package nor
+    ``ml_dtypes``."""
+    ref_root = PKG.parent / "repro"
+    files = [PKG / (m[len("repro_torch."):].replace(".", "/") + ".py")
+             for m in TRAINING]
+    assert len(files) == 8
+    word = re.compile(r"\bjax\b|\brepro\b(?!_)|ml_dtypes")
+    for f in files:
+        rel = f.relative_to(PKG)
+        assert (ref_root / rel).exists(), rel
+        assert not word.search(f.read_text()), f
+    # every module of the reference's train/ has its counterpart
+    ref_train = {p.name for p in (ref_root / "train").glob("*.py")}
+    assert ref_train <= {p.name for p in (PKG / "train").glob("*.py")}
 
 
 def test_model_and_serve_default_to_cuda():
