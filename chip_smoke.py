@@ -85,7 +85,14 @@ microbatches give the CPU's loss, gradients and parameters on the card;
 the fault-tolerant loop restarts from a checkpoint to the uninterrupted
 run's state, a checkpoint round-trips bit for bit and restores onto the
 CPU; and a four-stage GPipe forward on one card equals the sequential
-pass.  No kernel is on the training path.  Then
+pass.  No kernel is on the training path.  Then the pod tooling
+(``launch/sharding.py``, ``launch/mesh.py``, ``launch/dryrun.py``): the
+same train step over a ``(1, 1)`` DeviceMesh on a one-rank NCCL group
+(``shard_state`` and ``sh``) equals the plain step bit for bit; the dry
+run's reckoning of that cell on a fake one-rank world gives its argument
+bytes exactly and its peak memory within 25% of the card's; and one
+production dry-run cell (``llama3.2-1b`` x ``train_4k`` over the fake
+256-rank single-pod mesh) runs to exit 0.  Then
 every kernel is timed at the main path's
 shapes (the cross
 form of ``batch_euclid`` at the densest leaf group, at the eager batch's
@@ -183,6 +190,11 @@ TRAIN_FAULT_STEP = 7        # the injected fault; checkpoints every 5 steps
 TRAIN_RESUME_TOL = 2e-5     # the reference test's resume tolerance
 PIPE_STAGES, PIPE_M, PIPE_B, PIPE_D = 4, 8, 64, 2048
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 (data sheet, 700 W)
+# phase 21: the pod tooling on one card — phase 20's step sharded over a
+# (1, 1) DeviceMesh on NCCL, and the dry run's reckoning of it
+POD_STEPS = 3               # sharded steps, then as many plain ones
+POD_PEAK_TOL = 0.25         # reckoned peak vs the measured rise
+POD_SUBPROCESS_S = 600      # each dry-run subprocess's time limit
 
 
 def fail(msg: str) -> None:
@@ -2880,6 +2892,227 @@ def training_phase(torch, np) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the pod tooling — a sharded train step, the dry run vs the card
+# ---------------------------------------------------------------------------
+
+POD_RECKON = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_host_mesh
+D.init_fake_world(1)
+r = D.run_cell(sys.argv[2], "chip_train", "host", save=False, verbose=True,
+               spec=ShapeSpec("chip_train", int(sys.argv[3]),
+                              int(sys.argv[4]), "train"),
+               mesh=make_host_mesh(device_type="cuda"))
+print("RECKONED " + json.dumps(r))
+"""
+
+
+def profiled_step(torch, fn):
+    """(device ms, wall s) of one run of ``fn`` under torch.profiler, the
+    wall the run's own, synchronized before and after: its busy share is
+    the one over the other."""
+    wall = []
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+
+    ms, _ = device_profile(torch, run, top=0)
+    return ms, wall[0]
+
+
+def pod_phase(torch, np) -> dict:
+    """``launch/sharding.py``, ``launch/mesh.py`` and ``launch/dryrun.py``
+    on the card.  (a) Phase 20's step (``llama3.2-1b`` at its published
+    width in bf16, batch 8 x 1024, remat, the registry's microbatches, the
+    launcher's AdamW and token stream) over a ``(1, 1)`` mesh of
+    ``make_host_mesh``'s shape on a one-rank NCCL group: ``shard_state``
+    and ``sh`` (every placement falls to ``Replicate`` on one device), 3
+    steps, then 3 plain steps from the same seed and batches; the losses
+    and every parameter equal bit for bit; seconds a step of both (the
+    difference is DTensor's dispatch), the busy share of one step of
+    each, the peak memory's rise over the plain steps.  (b) The dry run's
+    reckoning of the same cell on a fake one-rank world in a subprocess:
+    argument bytes equal the live state's and batch's bytes exactly, the
+    reckoned peak within 25% of the measured rise, the traced FLOPs
+    beside ``launch/flops.step_flops``.  (c) One production cell at full
+    width, ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
+    --shape train_4k --mesh single``, exit 0.  No kernel is on this path.
+    (b) and (c) trace on the meta device, on the CPU, beside (a)."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, \
+        distribute_tensor
+
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import TRAIN_MICROBATCHES
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import flops as FL
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (batch_placements,
+                                             make_shardings, shard_state)
+    from repro_torch.models import Model, init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    dev = torch.device(DEVICE)
+    arch, B, T = TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ
+    work = ROOT / "build" / "pod_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    reckon = subprocess.Popen(
+        [sys.executable, "-c", POD_RECKON, str(ROOT / "src"), arch, str(T),
+         str(B)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    cell = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--mesh", "single"], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cfg = get(arch)
+        micro = TRAIN_MICROBATCHES.get(arch, 1)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+        data = TokenPipeline(cfg.vocab_unpadded, batch=B, seq_len=T,
+                             d_model=cfg.d_model, device=dev)
+        batches = [data(s) for s in range(POD_STEPS)]
+        batch_bytes = sum(v.nbytes for v in batches[0].values())
+        dist.init_process_group("nccl", init_method=f"file://{work / 'store'}",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(device_type="cuda")
+            check(tuple(mesh.shape) == (1, 1)
+                  and mesh.device_type == "cuda", f"pod: mesh {mesh}")
+            torch.cuda.empty_cache()
+            model = Model(cfg, device=dev, seed=0)
+            state = shard_state(init_train_state(model, opt), mesh)
+            check(all(isinstance(t, DTensor) and all(
+                isinstance(p, Replicate) for p in t.placements)
+                for t in (*state["params"].values(),
+                          *state["opt"]["m"].values())),
+                "pod: a placement on the (1, 1) mesh is not Replicate")
+            live_bytes = sum(t.to_local().nbytes for t in (
+                *state["params"].values(), *state["opt"]["m"].values(),
+                *state["opt"]["v"].values(), state["opt"]["step"]))
+            sh = make_shardings(mesh)
+            step = make_train_step(model, sh=sh, opt_cfg=opt, remat=True,
+                                   microbatches=micro)
+            pl = batch_placements(mesh, batches[0], B)
+
+            def placed(b_):
+                return {k: distribute_tensor(v, mesh, pl[k])
+                        for k, v in b_.items()}
+
+            s_losses, s_secs = [], []
+            for b_ in batches:
+                b_ = placed(b_)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m_ = step(state, b_)
+                s_losses.append(m_["loss"].full_tensor().item())
+                s_secs.append(time.perf_counter() - t1)
+            # a fourth step, profiled, on the last batch (so too the plain
+            # side): the parameters are compared after it
+            b_ = placed(batches[-1])
+            s_busy, s_wall = profiled_step(torch, lambda: step(state, b_))
+            sharded = {k: v.to_local().detach()
+                       for k, v in state["params"].items()}
+            del state, step, model, m_, b_
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        # the plain steps from the same seed and batches
+        before = torch.cuda.memory_allocated()
+        model = Model(cfg, device=dev, seed=0)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt_cfg=opt, remat=True,
+                               microbatches=micro)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p_losses, p_secs = [], []
+        for b_ in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m_ = step(state, b_)
+            p_losses.append(m_["loss"].item())
+            p_secs.append(time.perf_counter() - t1)
+        rise = torch.cuda.max_memory_allocated() - before
+        plain = {k: v.detach() for k, v in state["params"].items()}
+        p_busy, p_wall = profiled_step(torch,
+                                       lambda: step(state, batches[-1]))
+        plain_live = sum(t.nbytes for t in (
+            *plain.values(), *state["opt"]["m"].values(),
+            *state["opt"]["v"].values(), state["opt"]["step"]))
+        check(plain_live == live_bytes,
+              f"pod: the sharded state holds {live_bytes} B, the plain one "
+              f"{plain_live} B")
+        print(f"pod (a): {arch} at its published width, batch {B} x {T}, "
+              f"remat, microbatches {micro}, over a (1, 1) mesh on NCCL, "
+              f"{len(plain)} parameters equal bit for bit after "
+              f"{POD_STEPS} + 1 steps: "
+              f"sharded losses {s_losses}, plain {p_losses}; seconds a step "
+              f"sharded {[round(s, 4) for s in s_secs]}, plain "
+              f"{[round(s, 4) for s in p_secs]}; busy (torch.profiler, one "
+              f"step after the timed ones) sharded {s_busy:.1f} ms of device "
+              f"time, plain {p_busy:.1f} ms; peak memory rise over the "
+              f"plain steps {rise / 2**30:.2f} GiB")
+        print(f"pod (a): the profiled step: sharded {s_wall:.4f} s "
+              f"({100 * s_busy / 1e3 / s_wall:.1f}% busy), plain "
+              f"{p_wall:.4f} s ({100 * p_busy / 1e3 / p_wall:.1f}% busy)")
+        check(s_losses == p_losses,
+              f"pod: sharded losses {s_losses} != plain {p_losses}")
+        differ = [k for k in plain if not torch.equal(sharded[k], plain[k])]
+        check(not differ, f"pod: {len(differ)} parameters differ, e.g. "
+              f"{differ[:3]}")
+        del state, step, model, plain, sharded
+        torch.cuda.empty_cache()
+
+        # (b) the dry run's reckoning of the same cell
+        out, err = reckon.communicate(timeout=POD_SUBPROCESS_S)
+        check(reckon.returncode == 0,
+              f"pod (b): the reckoning failed: {err[-3000:]}")
+        rec = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("RECKONED ")][-1][9:])
+        mem = rec["memory"]
+        args = live_bytes + batch_bytes
+        check(mem["argument_size_in_bytes"] == args,
+              f"pod (b): reckoned argument bytes "
+              f"{mem['argument_size_in_bytes']} != live {args}")
+        ratio = mem["peak_memory_in_bytes"] / rise
+        print(f"pod (b): reckoned on a fake (1, 1) world: argument bytes "
+              f"{mem['argument_size_in_bytes']} == the live state's and "
+              f"batch's; peak {mem['peak_memory_in_bytes'] / 2**30:.2f} GiB "
+              f"vs the measured rise {rise / 2**30:.2f} GiB (ratio "
+              f"{ratio:.3f}); traced FLOPs {rec['cost']['flops']:.4e} vs "
+              f"step_flops {FL.step_flops(cfg, B, T, 'train', remat=True):.4e}"
+              f"; collectives {rec['collectives']['by_op_count']}; trace "
+              f"{rec['timings']['trace_s']:.1f} s")
+        check(abs(ratio - 1) <= POD_PEAK_TOL,
+              f"pod (b): reckoned peak off the measured rise by "
+              f"{100 * (ratio - 1):.1f}%")
+
+        # (c) one production cell at full width
+        out, err = cell.communicate(timeout=POD_SUBPROCESS_S)
+        check(cell.returncode == 0,
+              f"pod (c): the production cell failed: {err[-3000:]}")
+        for ln in out.splitlines():
+            if ln.startswith("[") or ln.startswith("  memory"):
+                print(f"pod (c): {ln[:400]}")
+    finally:
+        for p in (reckon, cell):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"pod phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3153,6 +3386,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_l = training_phase(torch, np)
     print(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21: the pod tooling: a sharded step on NCCL, the dry run vs the card --
+    pod_phase(torch, np)
 
     # -- 9: each kernel at the main path's shapes ----------------------------------
     timer = Timer(torch)

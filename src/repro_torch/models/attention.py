@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..launch.sharding import UNSHARDED, Shardings
 from .config import ModelConfig
 from .layers import Initializer, dense_init, rope
 
@@ -157,7 +158,8 @@ def _blockwise_attention(q, k, v, *, causal: bool, window: int,
 def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor], causal: bool = True,
               window: int = 0, memory: Optional[torch.Tensor] = None,
-              dense_threshold: int = -1, q_chunk: int = 1024,
+              sh: Shardings = UNSHARDED, dense_threshold: int = -1,
+              q_chunk: int = 1024,
               kv_chunk: int = 1024
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full attention over a sequence (prefill).
@@ -169,16 +171,25 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
     if memory is not None:
         causal = False
     q, k, v = _project_qkv(x, p, cfg, positions, xk=memory)
+    q = sh.act(q, "batch", "seq_unsharded", "heads", None)
+    k = sh.act(k, "batch", "seq_unsharded", "kv_heads", None)
+    v = sh.act(v, "batch", "seq_unsharded", "kv_heads", None)
     kr = _repeat_kv(k, cfg.n_heads)
     vr = _repeat_kv(v, cfg.n_heads)
     T, S = q.shape[1], kr.shape[1]
     if dense_threshold < 0:
         dense_threshold = cfg.attn_dense_threshold
-    if max(T, S) <= dense_threshold:
-        o = _dense_attention(q, kr, vr, causal=causal, window=window)
-    else:
-        o = _blockwise_attention(q, kr, vr, causal=causal, window=window,
-                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+    def core(q, kr, vr):
+        if max(T, S) <= dense_threshold:
+            return _dense_attention(q, kr, vr, causal=causal, window=window)
+        return _blockwise_attention(q, kr, vr, causal=causal, window=window,
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+    # each (batch, head) attends on its own: the core runs on the local
+    # shards, laid out as q (the sequence whole)
+    pl = sh.placements(q.shape, "batch", "seq_unsharded", "heads", None)
+    o = sh.local(core, pl, (q, pl), (kr, pl), (vr, pl))
     B = x.shape[0]
     out = o.reshape(B, T, cfg.n_heads * cfg.head_dim_) @ p["wo"]
     return out, (k, v)
@@ -187,7 +198,8 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
 def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      pos: int, window: int = 0,
-                     memory: Optional[torch.Tensor] = None
+                     memory: Optional[torch.Tensor] = None,
+                     sh: Shardings = UNSHARDED
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode step.
 
@@ -198,43 +210,59 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *,
     written at ``pos % S``, which is what keeps hybrid decode state
     bounded.  Grouped-query heads read their KV head of the cache without
     a repeated copy: query head ``h = kv * G + g`` reads KV head ``kv``.
+    Under ``sh`` the slot write and the attention run on each rank's
+    local shards, laid out as the cache.
     """
     B = x.shape[0]
     pos = int(pos)
+    S = cache_k.shape[1]
     if memory is not None:
         # cross-attention reads the (static, pre-projected) encoder memory
         # from the cache; no RoPE on cross-attention queries
         q, _, _ = _project_qkv(x, p, cfg, None, xk=x)
+        k1 = v1 = None
     else:
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=x.device)
         q, k1, v1 = _project_qkv(x, p, cfg, positions)
-        S = cache_k.shape[1]
-        slot = pos % S if window else pos
-        slot = min(max(slot, 0), S - 1)
-        cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
-    S, KV, D = cache_k.shape[1], cache_k.shape[2], q.shape[-1]
-    H = cfg.n_heads
-    qg = q.reshape(B, 1, KV, H // KV, D)
-    scores = torch.einsum("btkgd,bskd->bkgts", qg,
-                          cache_k.to(x.dtype)).float()
-    scores = scores.reshape(B, H, 1, S) * (D ** -0.5)
-    spos = torch.arange(S, device=x.device)[None, None, None, :]
-    if memory is not None:
-        mask = None
-    elif window:
-        # ring buffer: valid slots are those already written (< pos+1) and
-        # within the window; slot ages are ring arithmetic (floor modulo)
-        age = torch.remainder(pos - spos, S)
-        mask = age < min(pos + 1, window)
-    else:
-        mask = spos <= pos
-    if mask is not None:
-        scores = torch.where(mask, scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bkgts,bskd->btkgd",
-                     probs.reshape(B, KV, H // KV, 1, S),
-                     cache_v.to(x.dtype))
-    out = o.reshape(B, 1, H * cfg.head_dim_) @ p["wo"]
+    slot = min(max(pos % S if window else pos, 0), S - 1)
+    G = cfg.n_heads // cfg.n_kv_heads
+
+    def core(q, cache_k, cache_v, *new):
+        if new:
+            cache_k[:, slot] = new[0][:, 0].to(cache_k.dtype)
+            cache_v[:, slot] = new[1][:, 0].to(cache_v.dtype)
+        b, KV, D = q.shape[0], cache_k.shape[2], q.shape[-1]
+        qg = q.reshape(b, 1, KV, G, D)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg,
+                              cache_k.to(q.dtype)).float()
+        scores = scores.reshape(b, KV * G, 1, S) * (D ** -0.5)
+        spos = torch.arange(S, device=q.device)[None, None, None, :]
+        if memory is not None:
+            mask = None
+        elif window:
+            # ring buffer: valid slots are those already written (< pos+1)
+            # and within the window; slot ages are ring arithmetic (floor
+            # modulo)
+            age = torch.remainder(pos - spos, S)
+            mask = age < min(pos + 1, window)
+        else:
+            mask = spos <= pos
+        if mask is not None:
+            scores = torch.where(mask, scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        o = torch.einsum("bkgts,bskd->btkgd",
+                         probs.reshape(b, KV, G, 1, S), cache_v.to(q.dtype))
+        return o.reshape(b, 1, KV * G, D)
+
+    new = () if k1 is None else (k1, v1)
+    # laid out as the cache; under a mesh the caches are written in place
+    # through their local shards, which autograd forbids on a view of a
+    # DTensor: the sharded decode step is a serving step and takes no
+    # gradient
+    pl = sh.leading(cache_k, cache_k.ndim)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and sh.mesh is None):
+        o = sh.local(core, pl, (q, pl), (cache_k, pl), (cache_v, pl),
+                     *((t, pl) for t in new))
+    out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"]
     return out, cache_k, cache_v

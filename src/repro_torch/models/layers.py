@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.sharding import UNSHARDED, Shardings
+
 __all__ = ["rms_norm", "rope", "gated_mlp", "gated_mlp_init", "dense_init",
            "Initializer", "softplus", "dtype_of", "dtype_anchor"]
 
@@ -112,11 +114,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def gated_mlp(x: torch.Tensor, p) -> torch.Tensor:
+def gated_mlp(x: torch.Tensor, p, sh: Shardings = UNSHARDED
+              ) -> torch.Tensor:
     """SwiGLU feed-forward: silu(x W_g) * (x W_u) W_d, the silu in fp32."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
+    h = sh.act(h, "batch", "seq_unsharded", "mlp")
     return h @ p["w_down"]
 
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.sharding import UNSHARDED, Shardings
 from .config import ModelConfig
 from .layers import Initializer, dense_init
 
@@ -49,7 +50,8 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(x: torch.Tensor, p, cfg: ModelConfig
+def moe_block(x: torch.Tensor, p, cfg: ModelConfig,
+              sh: Shardings = UNSHARDED
               ) -> Tuple[torch.Tensor, dict]:
     """x: [B, T, d] -> (y: [B, T, d], aux losses dict)."""
     B, T, d = x.shape
@@ -61,6 +63,10 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top_k(probs, k)                          # [B, T, k]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # the slotting scatters into fresh tensors, and DTensor has no in-place
+    # op on a plain tensor: the expert choices (B x T x k, small) are
+    # replicated and every rank slots the whole batch as plain tensors
+    top_e = sh.whole(top_e)
 
     # ---- aux losses (fp32) --------------------------------------------------
     me = probs.mean(dim=(0, 1))                              # mean router prob
@@ -104,12 +110,22 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig
     xe = xe.reshape(B, E, C, d)
     xe = torch.where(occupied[..., None], xe, torch.zeros((), dtype=x.dtype,
                                                           device=dev))
+    xe = sh.act(xe, "batch", "experts", None, None)
 
     # ---- expert FFN (SwiGLU) ------------------------------------------------
-    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"])      # [B, E, C, d]
+    def ffn(xe, w_gate, w_up, w_down):
+        g = torch.einsum("becd,edf->becf", xe, w_gate)
+        u = torch.einsum("becd,edf->becf", xe, w_up)
+        h = F.silu(g.float()).to(x.dtype) * u
+        return torch.einsum("becf,efd->becd", h, w_down)     # [B, E, C, d]
+
+    # each (batch row, expert) is its own product: the FFN runs on the
+    # local shards, the weights gathered but for the expert axis
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    xpl = sh.placements(xe.shape, "batch", "experts", None, None)
+    wpl = sh.placements(ws[0].shape, "experts", None, None)
+    ye = sh.local(ffn, xpl, (xe, xpl), *((w_, wpl) for w_ in ws))
+    ye = sh.act(ye, "batch", "experts", None, None)
 
     # ---- combine: gather expert outputs back to (token, choice) -------------
     gather_pos = torch.where(valid, e_flat * C + slot, 0)

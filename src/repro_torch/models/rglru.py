@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.sharding import UNSHARDED, Shardings
 from .config import ModelConfig
 from .layers import Initializer, dense_init, softplus
 
@@ -50,10 +51,13 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _gates(xr: torch.Tensor, p):
-    """xr: [B, T, r] (fp32) -> (a_t, gated_input), both fp32."""
-    r_gate = torch.sigmoid(xr @ p["w_a"] + p["b_a"])
-    i_gate = torch.sigmoid(xr @ p["w_x"] + p["b_x"])
+def _gates(xr: torch.Tensor, p, sh: Shardings = UNSHARDED):
+    """xr: [B, T, r] (fp32) -> (a_t, gated_input), both fp32.  Under
+    ``sh`` the gate matmuls take ``xr`` whole over the rnn width (they
+    contract it), their outputs sharded over it like ``xr``."""
+    xg = sh.act(xr, "batch", "seq_unsharded", None)
+    r_gate = torch.sigmoid(xg @ p["w_a"] + p["b_a"])
+    i_gate = torch.sigmoid(xg @ p["w_x"] + p["b_x"])
     # a_t = sigmoid(Lambda)^(c * r_t); log sigmoid(L) = -softplus(-L)
     log_a = _C * r_gate * (-softplus(-p["Lambda"]))
     a_t = torch.exp(log_a)
@@ -76,10 +80,11 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rglru_scan(xr: torch.Tensor, p, h0: Optional[torch.Tensor] = None):
+def _rglru_scan(xr: torch.Tensor, p, h0: Optional[torch.Tensor] = None,
+                sh: Shardings = UNSHARDED):
     """The recurrence over a sequence.  xr: [B, T, r] fp32.  A carried
     state ``h0`` is folded into step 0's additive term."""
-    a_t, b_t = _gates(xr, p)
+    a_t, b_t = _gates(xr, p, sh)
     if h0 is not None:
         b_t = torch.cat([b_t[:, :1] + (a_t[:, 0] * h0)[:, None],
                          b_t[:, 1:]], dim=1)
@@ -87,19 +92,21 @@ def _rglru_scan(xr: torch.Tensor, p, h0: Optional[torch.Tensor] = None):
     return h, h[:, -1]
 
 
-def rglru_block(x: torch.Tensor, p, cfg: ModelConfig
+def rglru_block(x: torch.Tensor, p, cfg: ModelConfig,
+                sh: Shardings = UNSHARDED
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Griffin recurrent block over a full sequence.  x: [B, T, d]."""
     B, T, _ = x.shape
     K = cfg.conv_width
     y_branch = _gelu((x @ p["w_in_y"]).float())
     xb = x @ p["w_in_x"]
+    xb = sh.act(xb, "batch", "seq_unsharded", "rnn")
     # causal depthwise conv
     xp = torch.cat([xb.new_zeros((B, K - 1, xb.shape[2])), xb], dim=1)
     xc = sum(xp[:, i: i + T] * p["conv_w"][i][None, None, :]
              for i in range(K)) + p["conv_b"]
     new_conv_state = xp[:, -(K - 1):] if K > 1 else None
-    h, last_h = _rglru_scan(xc.float(), p)
+    h, last_h = _rglru_scan(xc.float(), p, sh=sh)
     out = (h * y_branch).to(x.dtype)
     return out @ p["w_out"], (new_conv_state, last_h)
 

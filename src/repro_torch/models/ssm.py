@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.sharding import UNSHARDED, Shardings
 from .config import ModelConfig
 from .layers import Initializer, dense_init, rms_norm, softplus
 
@@ -133,7 +134,8 @@ def _ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig,
     return y, state
 
 
-def ssm_block(x: torch.Tensor, p, cfg: ModelConfig
+def ssm_block(x: torch.Tensor, p, cfg: ModelConfig,
+              sh: Shardings = UNSHARDED
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence Mamba-2 block.  x: [B, T, d] -> [B, T, d].
 
@@ -150,9 +152,22 @@ def ssm_block(x: torch.Tensor, p, cfg: ModelConfig
     xs = conv_out[..., :di].reshape(B, T, H, P)
     Bm = conv_out[..., di: di + G * S].reshape(B, T, G, S)
     Cm = conv_out[..., di + G * S:].reshape(B, T, G, S)
+    xs = sh.act(xs, "batch", "seq_unsharded", "heads", None)
     dt = softplus(dt.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
-    y, final_state = _ssd_chunked(xs, dt, A, Bm, Cm, cfg)
+    # the scan is independent per (batch row, head): it runs on the local
+    # shards, B and C repeated to the heads first (a local head then finds
+    # its group's row at its own index; the scan's own repeat is then a
+    # copy, and the values are the same)
+    Bh = torch.repeat_interleave(Bm, H // G, dim=2)
+    Ch = torch.repeat_interleave(Cm, H // G, dim=2)
+    px = sh.placements(xs.shape, "batch", "seq_unsharded", "heads", None)
+    pt = sh.placements(dt.shape, "batch", "seq_unsharded", "heads")
+    pa = sh.placements(A.shape, "heads")
+    ps = sh.placements((B, H, P, S), "batch", "heads", None, None)
+    y, final_state = sh.local(
+        lambda *a: _ssd_chunked(*a, cfg), [px, ps], (xs, px), (dt, pt),
+        (A, pa), (Bh, px), (Ch, px))
     y = y + p["D"][None, None, :, None].to(y.dtype) * xs
     y = y.reshape(B, T, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.rms_eps)
@@ -161,9 +176,12 @@ def ssm_block(x: torch.Tensor, p, cfg: ModelConfig
 
 
 def ssm_decode_step(x: torch.Tensor, p, cfg: ModelConfig, *,
-                    conv_state: torch.Tensor, ssm_state: torch.Tensor):
+                    conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                    sh: Shardings = UNSHARDED):
     """One-token decode.  x: [B, 1, d]; conv_state [B, K-1, C] and
-    ssm_state [B, H, P, S] as ``ssm_block`` returns them."""
+    ssm_state [B, H, P, S] as ``ssm_block`` returns them.  Under ``sh``
+    the state update runs on each rank's local shards (independent per
+    batch row and head), laid out as the state."""
     B = x.shape[0]
     di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     G, S = cfg.ssm_groups, cfg.ssm_state
@@ -185,9 +203,17 @@ def ssm_decode_step(x: torch.Tensor, p, cfg: ModelConfig, *,
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt * A[None, :])                         # [B, H]
     xf = xs.float()
-    new_state = (ssm_state * decay[:, :, None, None]
-                 + torch.einsum("bhs,bh,bhp->bhps", Bh, dt, xf))
-    yt = torch.einsum("bhs,bhps->bhp", Ch, new_state)
+
+    def update(ssm_state, decay, Bh, dt, xf, Ch):
+        new_state = (ssm_state * decay[:, :, None, None]
+                     + torch.einsum("bhs,bh,bhp->bhps", Bh, dt, xf))
+        return new_state, torch.einsum("bhs,bhps->bhp", Ch, new_state)
+
+    # the state's batch and head shards, which every operand ([B, H, ...])
+    # takes on its leading dims
+    ps = sh.leading(ssm_state, 2)
+    new_state, yt = sh.local(update, [ps, ps], *(
+        (t, ps) for t in (ssm_state, decay, Bh, dt, xf, Ch)))
     yt = yt + p["D"][None, :, None] * xf                      # the D skip
     yt = yt.reshape(B, 1, di).to(x.dtype)
     yt = rms_norm(yt * F.silu(z.float()).to(yt.dtype), p["norm"],

@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..launch.sharding import UNSHARDED, Shardings
 from ..train.optimizer import AdamWConfig, adamw_init, adamw_update
 from .transformer import Model
 
@@ -60,21 +61,73 @@ def _promote_f32(x: torch.Tensor) -> torch.Tensor:
     return _Promote.apply(x)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE in fp32 math, original-dtype backward."""
+class _VocabParallelCE(torch.autograd.Function):
+    """Each token's CE over logits whose vocab dim is sharded over one
+    mesh dim (Megatron's vocab-parallel loss): the max, the sum of
+    exponentials and the label's logit are all-reduced over that dim's
+    group, so no rank holds the whole vocab.  fp32 math; the backward is
+    local (softmax minus the one-hot, times the cotangent) and returns the
+    logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, axis):
+        from torch.distributed import _functional_collectives as funcol
+        mesh, i = axis
+        x = logits.float()
+        V = x.shape[-1]
+        m = funcol.all_reduce(x.amax(-1), "max", axis)
+        p = torch.exp(x - m[..., None])
+        s = funcol.all_reduce(p.sum(-1), "sum", axis)
+        local = labels - mesh.get_local_rank(i) * V
+        mine = (local >= 0) & (local < V)
+        idx = torch.where(mine, local, 0)[..., None]
+        ll = torch.where(mine, torch.gather(x, -1, idx)[..., 0], 0.0)
+        ll = funcol.all_reduce(ll, "sum", axis)
+        p.div_(s[..., None])                           # the softmax
+        ctx.save_for_backward(p, idx, mine)
+        ctx.dtype = logits.dtype
+        return torch.log(s) + m - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, idx, torch.where(mine, -g, 0.0)[..., None])
+        return grad.to(ctx.dtype), None, None
+
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
+              axis=None) -> torch.Tensor:
+    """Each token's CE in fp32 math, original-dtype backward; over
+    vocab shards when ``axis`` names the mesh dim that shards them."""
+    if axis is not None:
+        return _VocabParallelCE.apply(logits, labels, axis)
     logits = _promote_f32(logits)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    return lse - ll
 
 
-def _loss_fn(model: Model, batch, remat: bool):
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in fp32 math, original-dtype backward."""
+    return torch.mean(_token_ce(logits, labels))
+
+
+def _loss_fn(model: Model, batch, remat: bool, sh: Shardings):
     logits, _, aux = model.forward(
-        batch["tokens"], frontend_embeds=batch.get("frontend"), remat=remat)
+        batch["tokens"], frontend_embeds=batch.get("frontend"), remat=remat,
+        sh=sh)
     labels = batch["labels"]
     T = labels.shape[1]
     logits = logits[:, -T:]          # vlm/audio: loss on text positions only
-    loss = cross_entropy(logits, labels)
+    # each rank's rows over its vocab shard, laid out as the unembedding
+    # leaves the logits (DTensor's label gather along a vocab-sharded dim
+    # fails, and its backward zero-fills the logits' global shape)
+    lpl = sh.placements(logits.shape, "batch", "seq_unsharded", "vocab")
+    pl = sh.placements(labels.shape, "batch", "seq_unsharded")
+    axis = sh.axis_of(lpl, 2)
+    loss = torch.mean(sh.local(lambda lg, lb: _token_ce(lg, lb, axis), pl,
+                               (logits, lpl), (labels, pl)))
     total = loss + _AUX_LB_WEIGHT * aux["load_balance"] \
         + _AUX_Z_WEIGHT * aux["router_z"]
     return total, {"ce": loss, **aux}
@@ -121,28 +174,32 @@ def _grad(loss: torch.Tensor, leaves):
 
 def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch, *,
                    microbatches: int = 1, remat: bool = True,
-                   accum_dtype=torch.float32):
+                   accum_dtype=torch.float32,
+                   sh: Optional[Shardings] = None):
     """(loss, parts, grads) of the training loss at ``params``: the
     gradient half of a train step.  ``grads`` is ``{name: tensor}`` in the
     parameters' dtype, or in ``accum_dtype`` when ``microbatches > 1``
     (the parts summed, then divided once)."""
     _bind(model, params)
+    sh = UNSHARDED if sh is None else sh
     names = list(params)
     leaves = [params[n] for n in names]
     if microbatches == 1:
-        loss, parts = _loss_fn(model, batch, remat)
+        loss, parts = _loss_fn(model, batch, remat, sh)
         grads = _grad(loss, leaves)
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
             dict(zip(names, grads))
-    g_sum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-             for p in leaves]
+    # zeros_like: a DTensor parameter's sum takes its placements
+    g_sum = [torch.zeros_like(p, dtype=accum_dtype) for p in leaves]
     l_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     parts_all = []
     for i in range(microbatches):
-        mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                           + tuple(v.shape[1:]))[i]
-              for k, v in batch.items()}
-        loss, parts = _loss_fn(model, mb, remat)
+        # rows [i * rows, (i + 1) * rows): the reference's reshape to
+        # [microbatches, rows, ...] and its row i (a slice, which DTensor also
+        # takes of a batch sharded over several mesh axes)
+        rows = next(iter(batch.values())).shape[0] // microbatches
+        mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        loss, parts = _loss_fn(model, mb, remat, sh)
         grads = _grad(loss, leaves)
         for a, g in zip(g_sum, grads):
             a.add_(g.to(accum_dtype))
@@ -154,36 +211,43 @@ def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch, *,
     return l_sum / microbatches, parts, grads
 
 
-def make_train_step(model: Model, *, opt_cfg: Optional[AdamWConfig] = None,
+def make_train_step(model: Model, *, sh: Optional[Shardings] = None,
+                    opt_cfg: Optional[AdamWConfig] = None,
                     microbatches: int = 1, remat: bool = True,
                     accum_dtype=torch.float32):
     """Build ``train_step(state, batch) -> (state, metrics)``; the metrics
     are the reference's: ``loss``, ``ce``, ``load_balance``,
-    ``router_z``, ``grad_norm`` and ``lr`` (0-d tensors on the device)."""
+    ``router_z``, ``grad_norm`` and ``lr`` (0-d tensors on the device).
+    Under ``sh`` the state is ``launch.sharding.shard_state``'s DTensors
+    and the batch DTensors placed by ``batch_placements``."""
     opt_cfg = opt_cfg or AdamWConfig()
+    sh = UNSHARDED if sh is None else sh
 
     def train_step(state, batch):
         params = state["params"]
-        loss, parts, grads = loss_and_grads(
-            model, params, batch, microbatches=microbatches, remat=remat,
-            accum_dtype=accum_dtype)
-        new_params, new_opt, om = adamw_update(params, grads, state["opt"],
-                                               opt_cfg)
+        with sh.scope():
+            loss, parts, grads = loss_and_grads(
+                model, params, batch, microbatches=microbatches,
+                remat=remat, accum_dtype=accum_dtype, sh=sh)
+            new_params, new_opt, om = adamw_update(params, grads,
+                                                   state["opt"], opt_cfg)
         metrics = {"loss": loss, **parts, **om}
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
 
 
-def make_prefill_step(model: Model):
+def make_prefill_step(model: Model, *, sh: Optional[Shardings] = None):
     """prefill(batch) -> (last_logits [B, V], cache)."""
+    sh = UNSHARDED if sh is None else sh
 
     def prefill_step(batch):
-        logits, cache, _ = model.forward(
-            batch["tokens"], frontend_embeds=batch.get("frontend"),
-            collect_cache=True)
-        # a copy, so the [B, T, V] logits are freed on return
-        return logits[:, -1].clone(), cache
+        with sh.scope():
+            logits, cache, _ = model.forward(
+                batch["tokens"], frontend_embeds=batch.get("frontend"),
+                sh=sh, collect_cache=True)
+            # a copy, so the [B, T, V] logits are freed on return
+            return logits[:, -1].clone(), cache
 
     return prefill_step
 
@@ -220,10 +284,12 @@ def pad_cache(model: Model, cache, extra: int):
     return {"layers": layers, "memory": cache.get("memory")}
 
 
-def make_serve_step(model: Model):
+def make_serve_step(model: Model, *, sh: Optional[Shardings] = None):
     """serve(cache, tokens [B, 1], pos) -> (logits [B, 1, V], cache)."""
+    sh = UNSHARDED if sh is None else sh
 
     def serve_step(cache, tokens, pos):
-        return model.decode_step(cache, tokens, pos)
+        with sh.scope():
+            return model.decode_step(cache, tokens, pos, sh=sh)
 
     return serve_step

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import _device_for
+from ..launch.sharding import UNSHARDED, Shardings
 from . import attention as ATT
 from . import moe as MOE
 from . import rglru as RG
@@ -102,7 +103,8 @@ class Model(nn.Module):
     The weights live on ``device``: the card unless ``device="cpu"`` is
     passed (without CUDA and no such request this raises).  They are drawn
     from ``seed`` or, with ``params``, taken from a state dict such as
-    ``params_from_reference`` makes.
+    ``params_from_reference`` makes; on ``device="meta"`` they are laid
+    out and not drawn (the dry run's model).
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
@@ -117,9 +119,11 @@ class Model(nn.Module):
         self.pattern = tuple(cfg.block_pattern or (self.kinds[0],))
         self.n_full = len(self.kinds) // len(self.pattern)
         # given weights are assigned after the structure is laid out on
-        # the meta device; otherwise every weight is drawn here
+        # the meta device; otherwise every weight is drawn here (on the
+        # meta device: laid out only)
         where = torch.device("meta") if params is not None else dev
-        init = None if params is not None else Initializer(seed, dev)
+        init = (None if params is not None or dev.type == "meta"
+                else Initializer(seed, dev))
         d, V = cfg.d_model, cfg.vocab
         self.embed = _fixed(dense_init(init, (V, d), dtype, where,
                                        scale=0.02))
@@ -154,12 +158,21 @@ class Model(nn.Module):
         return self.embed.device
 
     # --------------------------------------------------------------- helpers
-    def _embed(self, tokens):
-        x = self.embed[tokens]                         # gather [B, T, d]
-        return x * (self.cfg.d_model ** 0.5)           # in the param dtype
+    def _embed(self, tokens, sh: Shardings = UNSHARDED):
+        # the gather [B, T, d] runs on each rank's token shard over the
+        # whole table (gathered, as an FSDP weight is), laid out as the
+        # tokens (DTensor's own index_put backward fails on some torch
+        # versions)
+        tpl = sh.placements(tokens.shape, "batch")
+        x = sh.local(lambda table, tok: table[tok], tpl,
+                     (self.embed, sh.placements(self.embed.shape)),
+                     (tokens, tpl))
+        x = x * (self.cfg.d_model ** 0.5)              # in the param dtype
+        return sh.act(x, "batch", "seq", "embed")
 
-    def _frontend(self, frontend_embeds):
-        return frontend_embeds.to(self.embed.dtype) @ self.frontend_adapter
+    def _frontend(self, frontend_embeds, sh: Shardings = UNSHARDED):
+        x = frontend_embeds.to(self.embed.dtype) @ self.frontend_adapter
+        return sh.act(x, "batch", "seq", "embed")
 
     def _logits(self, x):
         cfg = self.cfg
@@ -170,8 +183,26 @@ class Model(nn.Module):
             logits = torch.where(mask[None, None, :], logits, -1e9)
         return logits
 
+    @staticmethod
+    def _gathered(h, sh: Shardings):
+        """A block's normed input (and its output, before the residual
+        add) whole over the sequence under ``sh``: Megatron's sequence
+        parallelism, the residual stream sequence-sharded between blocks
+        and the matmuls on it gathered.  Some torch versions' DTensor
+        cannot flatten a sharded sequence into a matmul's rows, in the
+        forward or, through a block's output, in the backward."""
+        return sh.act(h, "batch", "seq_unsharded", "embed")
+
+    def _sharded_logits(self, x, sh: Shardings):
+        """The logits, vocab-sharded under ``sh`` (the reference constrains
+        them before the vocab mask; the mask is elementwise, so after it
+        gives the same values)."""
+        logits = self._logits(self._gathered(x, sh))
+        return sh.act(logits, "batch", "seq_unsharded", "vocab")
+
     def _block(self, x, layer: Block, *, positions, causal: bool,
-               memory=None, collect_cache: bool = False):
+               memory=None, collect_cache: bool = False,
+               sh: Shardings = UNSHARDED):
         """One block over a full sequence.
 
         Returns (x, new_state, aux) — aux is a (load_balance, router_z)
@@ -179,7 +210,7 @@ class Model(nn.Module):
         """
         cfg = self.cfg
         kind = layer.kind
-        h = rms_norm(x, layer.norm1, cfg.rms_eps)
+        h = self._gathered(rms_norm(x, layer.norm1, cfg.rms_eps), sh)
         new_state = None
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = (zero, zero)
@@ -187,52 +218,63 @@ class Model(nn.Module):
             window = cfg.window if cfg.family == "hybrid" else 0
             y, (k, v) = ATT.attention(h, layer.attn, cfg,
                                       positions=positions, causal=causal,
-                                      window=window)
+                                      window=window, sh=sh)
             if collect_cache:
-                new_state = self._make_attn_cache(k, v, window)
+                new_state = self._make_attn_cache(k, v, window, sh)
         elif kind == "ssm":
-            y, st = SSM.ssm_block(h, layer.ssm, cfg)
+            y, st = SSM.ssm_block(h, layer.ssm, cfg, sh=sh)
             new_state = st if collect_cache else None
         else:
-            y, st = RG.rglru_block(h, layer.rec, cfg)
+            y, st = RG.rglru_block(h, layer.rec, cfg, sh=sh)
             new_state = st if collect_cache else None
-        x = x + y
+        x = sh.act(x + self._gathered(y, sh), "batch", "seq", "embed")
 
         if memory is not None and layer.has_cross:
-            hc = rms_norm(x, layer.cross_norm, cfg.rms_eps)
+            hc = self._gathered(rms_norm(x, layer.cross_norm, cfg.rms_eps),
+                                sh)
             yc, (ck, cv) = ATT.attention(hc, layer.cross_attn, cfg,
-                                         positions=None, memory=memory)
-            x = x + yc
+                                         positions=None, memory=memory,
+                                         sh=sh)
+            x = x + self._gathered(yc, sh)
             if collect_cache:
                 new_state = (new_state, (ck, cv))
 
         if _KIND_HAS_FFN[kind]:
-            h2 = rms_norm(x, layer.norm2, cfg.rms_eps)
+            h2 = self._gathered(rms_norm(x, layer.norm2, cfg.rms_eps), sh)
             if kind == "moe":
-                y2, moe_aux = MOE.moe_block(h2, layer.moe, cfg)
+                y2, moe_aux = MOE.moe_block(h2, layer.moe, cfg, sh=sh)
                 aux = (moe_aux["load_balance"], moe_aux["router_z"])
             else:
-                y2 = gated_mlp(h2, layer.mlp)
-            x = x + y2
+                y2 = gated_mlp(h2, layer.mlp, sh=sh)
+            x = sh.act(x + self._gathered(y2, sh), "batch", "seq", "embed")
         return x, new_state, aux
 
     @staticmethod
-    def _make_attn_cache(k, v, window):
+    def _make_attn_cache(k, v, window, sh: Shardings = UNSHARDED):
         """Trim/align prefill K,V into the decode cache layout: a window
-        layer keeps its last ``window`` positions in ring order."""
+        layer keeps its last ``window`` positions in ring order (under
+        ``sh`` on each rank's shards: DTensor has no strategy for the
+        ring's index_put on some torch versions)."""
         if not window:
             return (k, v)
-        B, T = k.shape[0], k.shape[1]
+        T = k.shape[1]
         take = min(T, window)
-        pos = torch.arange(T - take, T, device=k.device) % window
-        ck = k.new_zeros((B, window) + tuple(k.shape[2:]))
-        cv = v.new_zeros((B, window) + tuple(v.shape[2:]))
-        ck[:, pos] = k[:, T - take:]
-        cv[:, pos] = v[:, T - take:]
-        return (ck, cv)
+
+        def ring(k, v):
+            pos = torch.arange(T - take, T, device=k.device) % window
+            ck = k.new_zeros((k.shape[0], window) + tuple(k.shape[2:]))
+            cv = v.new_zeros((v.shape[0], window) + tuple(v.shape[2:]))
+            ck[:, pos] = k[:, T - take:]
+            cv[:, pos] = v[:, T - take:]
+            return (ck, cv)
+
+        pl = sh.placements(k.shape, "batch", "seq_unsharded", "kv_heads",
+                           None)
+        return sh.local(ring, [pl, pl], (k, pl), (v, pl))
 
     # ----------------------------------------------------------- full passes
     def forward(self, tokens, *, frontend_embeds=None,
+                sh: Shardings = UNSHARDED,
                 collect_cache: bool = False, bidirectional: bool = False,
                 remat: bool = False):
         """Full-sequence forward.
@@ -244,19 +286,21 @@ class Model(nn.Module):
         says (the reference's encoder resets its flag before the decoder
         runs); the encoder itself is always bidirectional.  ``remat``
         recomputes each pattern group (and each encoder layer) in the
-        backward instead of keeping its activations.
+        backward instead of keeping its activations.  ``sh`` (a
+        ``launch.sharding.Shardings``) constrains the activations' layout
+        where the reference does; with DTensor weights.
         """
         cfg = self.cfg
         memory = None
         if cfg.is_encdec:
-            memory = self._encode(frontend_embeds, remat)
-            x = self._embed(tokens)
+            memory = self._encode(frontend_embeds, remat, sh)
+            x = self._embed(tokens, sh)
             bidirectional = False
         elif cfg.frontend != "none" and frontend_embeds is not None:
-            x = torch.cat([self._frontend(frontend_embeds),
-                           self._embed(tokens)], dim=1)
+            x = torch.cat([self._frontend(frontend_embeds, sh),
+                           self._embed(tokens, sh)], dim=1)
         else:
-            x = self._embed(tokens)
+            x = self._embed(tokens, sh)
 
         positions = torch.arange(x.shape[1], device=x.device)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -269,7 +313,7 @@ class Model(nn.Module):
                 x, st, aux = self._block(x, layer, positions=positions,
                                          causal=not bidirectional,
                                          memory=memory,
-                                         collect_cache=collect_cache)
+                                         collect_cache=collect_cache, sh=sh)
                 lb, rz = lb + aux[0], rz + aux[1]
                 states.append(st)
             return x, states, lb, rz
@@ -290,33 +334,76 @@ class Model(nn.Module):
             x, st, aux = self._block(x, layer, positions=positions,
                                      causal=not bidirectional,
                                      memory=memory,
-                                     collect_cache=collect_cache)
+                                     collect_cache=collect_cache, sh=sh)
             lb, rz = lb + aux[0], rz + aux[1]
             states.append(st)
 
-        logits = self._logits(x)
+        logits = self._sharded_logits(x, sh)
         cache = ({"layers": states, "memory": memory} if collect_cache
                  else None)
         return logits, cache, {"load_balance": lb, "router_z": rz}
 
-    def _encode(self, frames, remat: bool = False):
+    def _encode(self, frames, remat: bool = False,
+                sh: Shardings = UNSHARDED):
         """Encoder stack over frontend frames (bidirectional attention);
         with ``remat`` each layer is recomputed in the backward."""
-        x = (self._frontend(frames) if hasattr(self, "frontend_adapter")
+        x = (self._frontend(frames, sh) if hasattr(self, "frontend_adapter")
              else frames)
         positions = torch.arange(x.shape[1], device=x.device)
 
         def body(x, layer):
             return self._block(x, layer, positions=positions,
-                               causal=False)[0]
+                               causal=False, sh=sh)[0]
 
         for layer in self.enc_layers:
             x = (checkpoint(body, x, layer, use_reentrant=False) if remat
                  else body(x, layer))
-        return rms_norm(x, self.enc_norm, self.cfg.rms_eps)
+        return self._gathered(rms_norm(x, self.enc_norm, self.cfg.rms_eps),
+                              sh)
 
     # ------------------------------------------------------------ decode path
-    def decode_step(self, cache, tokens, pos: int):
+    def decode_cache_specs(self, batch: int, cache_len: int,
+                           enc_len: int = 0):
+        """A decode cache on the meta device (the dry run's input): the
+        layout prefill returns and ``pad_cache`` grows, ``{"layers":
+        [state per layer], "memory"}``, with a ``cache_len`` attention
+        cache (a hybrid's window layers keep a ``window`` ring), fp32
+        SSM/RG-LRU states, and for enc-dec the cross K/V and the encoder
+        memory over ``enc_len`` frames."""
+        cfg = self.cfg
+        dtype = dtype_of(cfg.param_dtype)
+        D, KV = cfg.head_dim_, cfg.n_kv_heads
+
+        def shp(s, dt=dtype):
+            return torch.empty(s, dtype=dt, device="meta")
+
+        def one(kind):
+            if kind in ("attn", "moe"):
+                W = cfg.window if (cfg.family == "hybrid" and cfg.window) \
+                    else cache_len
+                st = (shp((batch, W, KV, D)), shp((batch, W, KV, D)))
+            elif kind == "ssm":
+                ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+                st = (shp((batch, cfg.conv_width - 1, ch)),
+                      shp((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), torch.float32))
+            elif kind == "rec":
+                st = (shp((batch, cfg.conv_width - 1, cfg.rnn_width_)),
+                      shp((batch, cfg.rnn_width_), torch.float32))
+            else:
+                raise ValueError(kind)
+            if cfg.is_encdec:
+                st = (st, (shp((batch, enc_len, KV, D)),
+                           shp((batch, enc_len, KV, D))))
+            return st
+
+        memory = (shp((batch, enc_len, cfg.d_model)) if cfg.is_encdec
+                  else None)
+        return {"layers": [one(kind) for kind in self.kinds],
+                "memory": memory}
+
+    def decode_step(self, cache, tokens, pos: int,
+                    sh: Shardings = UNSHARDED):
         """One-token decode.  tokens: [B, 1]; pos: absolute position.
 
         Returns (logits [B, 1, V], new_cache).  The attention layers'
@@ -325,7 +412,7 @@ class Model(nn.Module):
         tensors.
         """
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(tokens, sh)
         memory = cache.get("memory")
         new_states = []
         for layer, state in zip(self.layers, cache["layers"]):
@@ -337,12 +424,12 @@ class Model(nn.Module):
                 W = cfg.window if cfg.family == "hybrid" else 0
                 y, nk, nv = ATT.decode_attention(
                     h, layer.attn, cfg, cache_k=state[0], cache_v=state[1],
-                    pos=pos, window=W)
+                    pos=pos, window=W, sh=sh)
                 new_state = (nk, nv)
             elif kind == "ssm":
                 y, new_state = SSM.ssm_decode_step(
                     h, layer.ssm, cfg, conv_state=state[0],
-                    ssm_state=state[1])
+                    ssm_state=state[1], sh=sh)
             else:
                 y, new_state = RG.rglru_decode_step(
                     h, layer.rec, cfg, conv_state=state[0],
@@ -352,18 +439,18 @@ class Model(nn.Module):
                 hc = rms_norm(x, layer.cross_norm, cfg.rms_eps)
                 yc, _, _ = ATT.decode_attention(
                     hc, layer.cross_attn, cfg, cache_k=cross_state[0],
-                    cache_v=cross_state[1], pos=pos, memory=memory)
+                    cache_v=cross_state[1], pos=pos, memory=memory, sh=sh)
                 x = x + yc
                 new_state = (new_state, cross_state)
             if _KIND_HAS_FFN[kind]:
                 h2 = rms_norm(x, layer.norm2, cfg.rms_eps)
                 if kind == "moe":
-                    y2, _ = MOE.moe_block(h2, layer.moe, cfg)
+                    y2, _ = MOE.moe_block(h2, layer.moe, cfg, sh=sh)
                 else:
-                    y2 = gated_mlp(h2, layer.mlp)
+                    y2 = gated_mlp(h2, layer.mlp, sh=sh)
                 x = x + y2
             new_states.append(new_state)
-        logits = self._logits(x)
+        logits = self._sharded_logits(x, sh)
         return logits, {"layers": new_states, "memory": memory}
 
 

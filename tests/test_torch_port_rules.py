@@ -40,6 +40,8 @@ TRAINING = ["repro_torch.train.optimizer", "repro_torch.train.compression",
             "repro_torch.train.checkpoint", "repro_torch.train.runtime",
             "repro_torch.data.tokens", "repro_torch.distributed.pipeline",
             "repro_torch.launch.train", "repro_torch.launch.flops"]
+POD = ["repro_torch.launch.sharding", "repro_torch.launch.hlo",
+       "repro_torch.launch.dryrun", "repro_torch.configs.shapes"]
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.kernels", "repro_torch.kernels.ops",
            "repro_torch.kernels.loader", "repro_torch.kernels.sax_summarize",
@@ -61,7 +63,7 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.core.tree",
            "repro_torch.obs.profile", "repro_torch.obs.analytics",
            "repro_torch.obs.health", "repro_torch.obs.httpd",
            "repro_torch.obs.validate", *SERVING, "repro_torch.train",
-           *TRAINING]
+           *TRAINING, *POD]
 
 
 def test_imports_with_jax_and_reference_blocked():
@@ -125,6 +127,25 @@ def test_training_modules_sit_at_the_references_paths_and_name_no_jax():
     # every module of the reference's train/ has its counterpart
     ref_train = {p.name for p in (ref_root / "train").glob("*.py")}
     assert ref_train <= {p.name for p in (PKG / "train").glob("*.py")}
+
+
+def test_pod_modules_sit_at_the_references_paths_and_name_no_jax():
+    """``launch/{sharding,hlo,dryrun}.py`` and ``configs/shapes.py`` exist
+    at the reference's relative paths and name neither jax nor the
+    reference package; with them every module of the reference has its
+    counterpart but two: ``distributed/compat.py`` (a ``shard_map`` shim
+    across JAX versions; the port's meshes run one process and
+    ``torch.distributed`` has no such shim to carry) and
+    ``kernels/mindist_scan.py`` (kernel #1 at Q=1, ``ops.mindist``)."""
+    ref_root = PKG.parent / "repro"
+    word = re.compile(r"\bjax\b|\brepro\b(?!_)|ml_dtypes")
+    for m in POD:
+        f = PKG / (m[len("repro_torch."):].replace(".", "/") + ".py")
+        assert (ref_root / f.relative_to(PKG)).exists(), f
+        assert not word.search(f.read_text()), f
+    missing = {str(p.relative_to(ref_root)) for p in ref_root.rglob("*.py")
+               if not (PKG / p.relative_to(ref_root)).exists()}
+    assert missing == {"distributed/compat.py", "kernels/mindist_scan.py"}
 
 
 def test_model_and_serve_default_to_cuda():
