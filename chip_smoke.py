@@ -191,7 +191,7 @@ TRAIN_RESUME_TOL = 2e-5     # the reference test's resume tolerance
 PIPE_STAGES, PIPE_M, PIPE_B, PIPE_D = 4, 8, 64, 2048
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 (data sheet, 700 W)
 # phase 21: the pod tooling on one card — phase 20's step sharded over a
-# (1, 1) DeviceMesh on NCCL, and the dry run's reckoning of it
+# (1, 1) and a (1, 1, 1) DeviceMesh on NCCL, and the dry run's reckoning of it
 POD_STEPS = 3               # sharded steps, then as many plain ones
 POD_PEAK_TOL = 0.25         # reckoned peak vs the measured rise
 POD_SUBPROCESS_S = 600      # each dry-run subprocess's time limit
@@ -2938,7 +2938,9 @@ def pod_phase(torch, np) -> dict:
     steps, then 3 plain steps from the same seed and batches; the losses
     and every parameter equal bit for bit; seconds a step of both (the
     difference is DTensor's dispatch), the busy share of one step of
-    each, the peak memory's rise over the plain steps.  (b) The dry run's
+    each, the peak memory's rise over the plain steps; then the same
+    steps over a ``(1, 1, 1)`` ``("pod", "data", "model")`` mesh, whose
+    step mesh flattens ``("pod", "data")``, bit for bit too.  (b) The dry run's
     reckoning of the same cell on a fake one-rank world in a subprocess:
     argument bytes equal the live state's and batch's bytes exactly, the
     reckoned peak within 25% of the measured rise, the traced FLOPs
@@ -2948,6 +2950,7 @@ def pod_phase(torch, np) -> dict:
     (b) and (c) trace on the meta device, on the CPU, beside (a)."""
     import os
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, \
         distribute_tensor
 
@@ -2955,7 +2958,7 @@ def pod_phase(torch, np) -> dict:
     from repro_torch.configs.registry import TRAIN_MICROBATCHES
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch import flops as FL
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, step_mesh
     from repro_torch.launch.sharding import (batch_placements,
                                              make_shardings, shard_state)
     from repro_torch.models import Model, init_train_state, make_train_step
@@ -2985,45 +2988,72 @@ def pod_phase(torch, np) -> dict:
         batch_bytes = sum(v.nbytes for v in batches[0].values())
         dist.init_process_group("nccl", init_method=f"file://{work / 'store'}",
                                 rank=0, world_size=1)
-        try:
-            mesh = make_host_mesh(device_type="cuda")
-            check(tuple(mesh.shape) == (1, 1)
-                  and mesh.device_type == "cuda", f"pod: mesh {mesh}")
+
+        def sharded_steps(mesh, profile: bool):
+            """POD_STEPS + 1 steps of the cell over ``mesh`` (the last on
+            the last batch again, profiled or not): (losses, seconds a
+            step, the parameters after, the state's bytes, the profiled
+            step's device ms and wall s)."""
+            smesh = step_mesh(mesh)
             torch.cuda.empty_cache()
             model = Model(cfg, device=dev, seed=0)
             state = shard_state(init_train_state(model, opt), mesh)
-            check(all(isinstance(t, DTensor) and all(
-                isinstance(p, Replicate) for p in t.placements)
-                for t in (*state["params"].values(),
-                          *state["opt"]["m"].values())),
-                "pod: a placement on the (1, 1) mesh is not Replicate")
-            live_bytes = sum(t.to_local().nbytes for t in (
+            check(all(isinstance(t, DTensor) and t.device_mesh == smesh
+                      and all(isinstance(p, Replicate) for p in t.placements)
+                      for t in (*state["params"].values(),
+                                *state["opt"]["m"].values())),
+                  f"pod: a placement on the {tuple(mesh.shape)} mesh is not "
+                  f"Replicate on its step mesh")
+            live = sum(t.to_local().nbytes for t in (
                 *state["params"].values(), *state["opt"]["m"].values(),
                 *state["opt"]["v"].values(), state["opt"]["step"]))
-            sh = make_shardings(mesh)
-            step = make_train_step(model, sh=sh, opt_cfg=opt, remat=True,
+            step = make_train_step(model, sh=make_shardings(mesh),
+                                   opt_cfg=opt, remat=True,
                                    microbatches=micro)
             pl = batch_placements(mesh, batches[0], B)
 
             def placed(b_):
-                return {k: distribute_tensor(v, mesh, pl[k])
+                return {k: distribute_tensor(v, smesh, pl[k])
                         for k, v in b_.items()}
 
-            s_losses, s_secs = [], []
+            losses, secs = [], []
             for b_ in batches:
                 b_ = placed(b_)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 state, m_ = step(state, b_)
-                s_losses.append(m_["loss"].full_tensor().item())
-                s_secs.append(time.perf_counter() - t1)
-            # a fourth step, profiled, on the last batch (so too the plain
-            # side): the parameters are compared after it
+                losses.append(m_["loss"].full_tensor().item())
+                secs.append(time.perf_counter() - t1)
+            # a fourth step on the last batch (so too the plain side): the
+            # parameters are compared after it
             b_ = placed(batches[-1])
-            s_busy, s_wall = profiled_step(torch, lambda: step(state, b_))
-            sharded = {k: v.to_local().detach()
-                       for k, v in state["params"].items()}
-            del state, step, model, m_, b_
+            busy, wall = (profiled_step(torch, lambda: step(state, b_))
+                          if profile else (None, None))
+            if not profile:
+                step(state, b_)
+            params = {k: v.to_local().detach()
+                      for k, v in state["params"].items()}
+            return losses, secs, params, live, busy, wall
+
+        try:
+            mesh = make_host_mesh(device_type="cuda")
+            check(tuple(mesh.shape) == (1, 1)
+                  and mesh.device_type == "cuda", f"pod: mesh {mesh}")
+            s_losses, s_secs, sharded, live_bytes, s_busy, s_wall = \
+                sharded_steps(mesh, profile=True)
+            torch.cuda.empty_cache()
+            # the multi-pod mesh's three axes, one device each: its step
+            # mesh flattens ("pod", "data") into one dim
+            pod_mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=(
+                "pod", "data", "model"))
+            check(tuple(step_mesh(pod_mesh).mesh_dim_names) == (
+                "pod+data", "model"), "pod: the (1, 1, 1) step mesh")
+            t1 = time.perf_counter()
+            p3_losses, p3_secs, pod3, live3, _, _ = sharded_steps(
+                pod_mesh, profile=False)
+            p3_run = time.perf_counter() - t1
+            check(live3 == live_bytes, f"pod: the (1, 1, 1) state holds "
+                  f"{live3} B, the (1, 1) one {live_bytes} B")
             torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
@@ -3070,7 +3100,17 @@ def pod_phase(torch, np) -> dict:
         differ = [k for k in plain if not torch.equal(sharded[k], plain[k])]
         check(not differ, f"pod: {len(differ)} parameters differ, e.g. "
               f"{differ[:3]}")
-        del state, step, model, plain, sharded
+        differ3 = [k for k in plain if not torch.equal(pod3[k], plain[k])]
+        print(f"pod (a): the same over a (1, 1, 1) (pod, data, model) mesh "
+              f"(step mesh (pod+data, model)): losses {p3_losses}, seconds "
+              f"a step {[round(s, 4) for s in p3_secs]}, {len(plain)} "
+              f"parameters equal to the plain ones bit for bit: "
+              f"{not differ3} ({p3_run:.1f} s with the state's layout)")
+        check(p3_losses == p_losses,
+              f"pod: (1, 1, 1) losses {p3_losses} != plain {p_losses}")
+        check(not differ3, f"pod: {len(differ3)} parameters of the (1, 1, 1) "
+              f"run differ, e.g. {differ3[:3]}")
+        del state, step, model, plain, sharded, pod3
         torch.cuda.empty_cache()
 
         # (b) the dry run's reckoning of the same cell

@@ -52,7 +52,7 @@ from ..models.layers import dtype_of
 from ..train.optimizer import AdamWConfig
 from .flops import model_flops_6nd, step_flops
 from .hlo import LocalTrace, collective_stats
-from .mesh import make_production_mesh, tp_axis
+from .mesh import make_production_mesh, step_mesh, tp_axis
 from .sharding import (_tree_map, batch_placements, cache_placements,
                        make_shardings, shard_state)
 
@@ -111,7 +111,9 @@ def local_bytes(tree) -> int:
 
 
 def _distribute(tree, placements, mesh):
+    """``tree`` laid out by ``placements`` on ``mesh``'s step mesh."""
     from torch.distributed.tensor import distribute_tensor
+    mesh = step_mesh(mesh)
 
     def go(t, pl):
         if isinstance(t, dict):

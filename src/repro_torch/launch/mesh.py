@@ -17,11 +17,19 @@ device, over a process group the caller has initialized (NCCL on cards,
 gloo on the CPU, the fake backend for a dry run; nothing here starts
 one).  Single pod: ``(data=16, model=16)``, 256 ranks; multi-pod: ``(pod=2,
 data=16, model=16)``, 512 ranks, the ``pod`` axis carrying data
-parallelism and FSDP.  A DTensor placement shards over them
-(``launch/sharding.py``).
+parallelism and FSDP.  A step's DTensors live on :func:`step_mesh`, where
+the data-parallel axes ``('pod', 'data')`` are one dim (``"pod+data"``,
+ranks in the same major-to-minor order as the reference's
+``PartitionSpec(('pod', 'data'), ...)``): every rule names the two
+together, so each sharding over them is one collective over one group
+rather than two in turn, and DTensor's search for an op's placements
+runs over two mesh dims, not three (over three it took over a minute
+for one matmul of a backward).
+A DTensor placement shards over its dims (``launch/sharding.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Optional, Sequence, Tuple
@@ -29,8 +37,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 __all__ = ["SCAN_AXIS", "make_scan_mesh", "make_stage_mesh",
-           "make_production_mesh", "make_host_mesh", "dp_axes", "fsdp_axes",
-           "tp_axis"]
+           "make_production_mesh", "make_host_mesh", "step_mesh", "dim_axes",
+           "dp_axes", "fsdp_axes", "tp_axis"]
 
 # the name of the mesh's one axis: the shard axis of the pinned stacks
 SCAN_AXIS = "shard"
@@ -127,9 +135,48 @@ def make_host_mesh(*, device_type: Optional[str] = None):
                      _device_for(None, device_type).type)
 
 
+# a step mesh's dim name joins the pod axes it covers
+FLAT = "+"
+
+
+def dim_axes(mesh) -> Tuple[Tuple[str, ...], ...]:
+    """The pod axes each dim of ``mesh`` covers, in mesh order: one a dim,
+    ``('pod', 'data')`` for a step mesh's flattened dim."""
+    return tuple(tuple(n.split(FLAT)) for n in mesh.mesh_dim_names)
+
+
+def step_mesh(mesh):
+    """The mesh a step's DTensors live on: ``mesh`` with ``'pod'`` and
+    ``'data'`` (adjacent, in that order) as one dim ``"pod+data"`` of
+    their product's size, its index ``pod * data_size + data``; any other
+    mesh (and a step mesh) as it is.  A ``DeviceMesh`` gets a new
+    ``DeviceMesh`` over the same ranks, made once and kept on the mesh
+    (one set of process groups a pod mesh); an ``AbstractMesh`` a new
+    one of the same type."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names or "data" not in names:
+        return mesh
+    i = names.index("pod")
+    assert names[i + 1] == "data", f"'pod' and 'data' apart in {names}"
+    shape = tuple(mesh.shape)
+    flat_shape = shape[:i] + (shape[i] * shape[i + 1],) + shape[i + 2:]
+    flat_names = names[:i] + (FLAT.join(names[i:i + 2]),) + names[i + 2:]
+    if not hasattr(mesh, "device_type"):            # an AbstractMesh
+        return dataclasses.replace(mesh, shape=flat_shape,
+                                   mesh_dim_names=flat_names)
+    flat = getattr(mesh, "_step_mesh", None)
+    if flat is None:
+        from torch.distributed.device_mesh import DeviceMesh
+        flat = DeviceMesh(mesh.device_type, mesh.mesh.reshape(flat_shape),
+                          mesh_dim_names=flat_names)
+        mesh._step_mesh = flat
+    return flat
+
+
 def dp_axes(mesh) -> tuple:
     """Axes carrying data parallelism (batch sharding)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    axes = {a for dim in dim_axes(mesh) for a in dim}
+    return tuple(a for a in ("pod", "data") if a in axes)
 
 
 def fsdp_axes(mesh) -> tuple:

@@ -27,8 +27,14 @@ its dim is dropped.
 A mesh here is anything with ``mesh_dim_names`` and ``shape``: a
 ``DeviceMesh``, or an :class:`AbstractMesh` when only the rules are wanted
 (the counterpart of the reference's ``AbstractMesh``; no process
-group).  The models take :data:`UNSHARDED`, a ``Shardings`` without a
-mesh, by default: each of its methods is then the plain call.
+group).  Every placement here is over :func:`launch.mesh.step_mesh` of
+the mesh given, where the multi-pod mesh's ``('pod', 'data')`` is one dim:
+a spec's ``('pod', 'data')`` is one ``Shard`` on it, the same rows on the
+same ranks as the reference's two axes; :func:`make_shardings` and
+:func:`shard_state` lay DTensors out on it, and a caller that distributes
+a batch or a cache by these placements does so on ``step_mesh(mesh)``.
+The models take :data:`UNSHARDED`, a ``Shardings`` without a mesh, by
+default: each of its methods is then the plain call.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
 
-from .mesh import fsdp_axes, tp_axis
+from .mesh import dim_axes, fsdp_axes, step_mesh, tp_axis
 
 if TYPE_CHECKING:     # the models import this module
     from ..models.config import ModelConfig
@@ -63,9 +69,19 @@ def _axes(mesh) -> Tuple[Tuple[str, ...], str]:
     return fsdp_axes(mesh), tp_axis(mesh)
 
 
+def _dims(mesh, ax) -> list:
+    """The mesh dims a spec entry (``None``, an axis or a tuple of them)
+    shards over: whole dims, in mesh order."""
+    axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+    groups = dim_axes(mesh)
+    idx = sorted({i for a in axes for i, g in enumerate(groups) if a in g})
+    assert sum((groups[i] for i in idx), ()) == axes, \
+        f"axes {axes} are not whole dims of {mesh.mesh_dim_names} in order"
+    return idx
+
+
 def _size(mesh, ax) -> int:
-    names = (ax,) if isinstance(ax, str) else (ax or ())
-    return math.prod(mesh.shape[mesh.mesh_dim_names.index(a)] for a in names)
+    return math.prod(mesh.shape[i] for i in _dims(mesh, ax))
 
 
 def _fit(shape, spec, mesh) -> tuple:
@@ -76,19 +92,15 @@ def _fit(shape, spec, mesh) -> tuple:
 
 
 def spec_to_placements(spec, mesh) -> tuple:
-    """A ``PartitionSpec``-like tuple as one placement a mesh dim.  An
-    axis of one device replicates: its shard is the whole dim, and DTensor
-    refuses to view a dim it holds sharded."""
-    names = tuple(mesh.mesh_dim_names)
-    out = [Replicate()] * len(names)
+    """A ``PartitionSpec``-like tuple as one placement a dim of
+    ``step_mesh(mesh)``.  An axis of one device replicates: its shard is
+    the whole dim, and DTensor refuses to view a dim it holds sharded."""
+    mesh = step_mesh(mesh)
+    out = [Replicate()] * len(mesh.mesh_dim_names)
     for dim, ax in enumerate(spec):
-        axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
-        idx = [names.index(a) for a in axes]
-        assert idx == sorted(idx), \
-            f"axes {axes} of dim {dim} are not in mesh order {names}"
-        for i in idx:
+        for i in _dims(mesh, ax):
             assert isinstance(out[i], Replicate), \
-                f"mesh axis {names[i]} shards two dims of {spec}"
+                f"mesh dim {mesh.mesh_dim_names[i]} shards two dims of {spec}"
             if mesh.shape[i] > 1:
                 out[i] = Shard(dim)
     return tuple(out)
@@ -97,7 +109,9 @@ def spec_to_placements(spec, mesh) -> tuple:
 @dataclasses.dataclass
 class Shardings:
     """Activation-constraint helper threaded through the model code.  With
-    ``mesh`` None (:data:`UNSHARDED`) every method is the plain call."""
+    ``mesh`` None (:data:`UNSHARDED`) every method is the plain call;
+    otherwise ``mesh`` is a step mesh (:func:`make_shardings` makes it
+    one)."""
     mesh: Any
     rules: Dict[str, Any]
 
@@ -193,6 +207,26 @@ class Shardings:
             return x
         return self.act(x).to_local()
 
+    def like(self, t, ref, dtype):
+        """``t`` laid out as ``ref`` is, a partial sum reduced in
+        ``dtype`` (a plain tensor, or one laid out so already, as it
+        is): a gradient on its parameter's shards."""
+        if self.mesh is None or not isinstance(t, DTensor) or \
+                tuple(t.placements) == tuple(ref.placements):
+            return t
+        return t.to(dtype).redistribute(ref.device_mesh, ref.placements)
+
+    @staticmethod
+    def summed(placements, axis):
+        """``placements`` with the mesh dim of ``axis`` (what
+        :meth:`axis_of` returns) a partial sum: the layout of a result of
+        which each rank along that dim holds a part, the parts to be
+        added (``placements`` as they are where ``axis`` is None)."""
+        if axis is None:
+            return placements
+        return tuple(Partial() if j == axis[1] else p
+                     for j, p in enumerate(placements))
+
     def axis_of(self, placements, dim: int):
         """``(mesh, i)`` of the one mesh dim that shards tensor dim ``dim``
         under ``placements``, or None where none does (no mesh, or the
@@ -230,6 +264,7 @@ def make_shardings(mesh, *, sp: bool = True, batch_shardable: bool = True,
     """
     if mesh is None:
         return None
+    mesh = step_mesh(mesh)
     fsdp, tp = _axes(mesh)
     if mode == "dp":
         all_axes = tuple(fsdp) + (tp,)
@@ -445,7 +480,9 @@ def shard_state(state_or_model, mesh, policy: str = "tp"):
 
     A model has its parameters replaced in place and is returned; a state
     ``{"params", "opt": {"m", "v", "step"}}`` is returned as a new dict of
-    the same layout (a step binds its parameters into the model)."""
+    the same layout (a step binds its parameters into the model).  The
+    DTensors live on ``step_mesh(mesh)``."""
+    mesh = step_mesh(mesh)
     if isinstance(state_or_model, nn.Module):
         model = state_or_model
         for name, pl in param_placements(model, mesh, policy).items():

@@ -63,15 +63,14 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig,
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top_k(probs, k)                          # [B, T, k]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-    # the slotting scatters into fresh tensors, and DTensor has no in-place
-    # op on a plain tensor: the expert choices (B x T x k, small) are
-    # replicated and every rank slots the whole batch as plain tensors
-    top_e = sh.whole(top_e)
 
     # ---- aux losses (fp32) --------------------------------------------------
+    # the expert choices (B x T x k, small) replicated: every rank counts
+    # the whole batch's assignments as plain tensors
+    top_e_all = sh.whole(top_e)
     me = probs.mean(dim=(0, 1))                              # mean router prob
     ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-        0, top_e.reshape(-1),
+        0, top_e_all.reshape(-1),
         torch.full((B * T * k,), 1.0 / (B * T * k), dtype=torch.float32,
                    device=dev))                              # assignment frac
     aux = {
@@ -79,38 +78,65 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig,
         "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
     }
 
-    # ---- sort-based slotting ------------------------------------------------
-    e_flat = top_e.reshape(B, T * k)
-    p_flat = top_p.reshape(B, T * k)
-    e_sorted, order = torch.sort(e_flat, dim=-1, stable=True)
-    idx = torch.arange(T * k, device=dev)[None, :]
-    # start of each expert's run: left-sided search of the sorted ids
-    starts = torch.searchsorted(
-        e_sorted, torch.arange(E, device=dev).expand(B, E).contiguous())
-    slot_sorted = idx - torch.gather(starts, 1, e_sorted)
-    # invert the sort: the slot of each original choice position
-    inv = torch.empty_like(order).scatter_(
-        1, order, idx.expand(B, T * k).contiguous())
-    slot = torch.gather(slot_sorted, 1, inv)                 # [B, Tk]
-    valid = slot < C
-    tok = (idx // k).expand(B, T * k)                        # token of choice
+    # slotting, dispatch and combine are per batch row: under ``sh`` they
+    # run on each rank's rows (a row's tokens, choices and expert buffers
+    # stay on the rank that holds the row, as in the reference; DTensor's
+    # gathers would replicate the whole batch and zero-fill its global
+    # expert buffers in the backward), and on the rank's own experts
+    xpl = sh.placements(x.shape, "batch")
+    cpl = sh.placements(top_e.shape, "batch")
+    ipl = sh.placements((B, T * k), "batch")
+    epl = sh.placements((B, E, C, d), "batch", "experts", None, None)
+    eaxis = sh.axis_of(epl, 1)
 
-    # for each (b, e, c) slot, which token fills it; overflow -> sink
-    flat_pos = torch.where(valid, e_flat * C + slot, E * C)
-    token_for_slot = torch.zeros((B, E * C + 1), dtype=torch.int64,
-                                 device=dev).scatter_(1, flat_pos, tok)
-    occupied = torch.zeros((B, E * C + 1), dtype=torch.bool,
-                           device=dev).scatter_(
-        1, flat_pos, torch.ones_like(flat_pos, dtype=torch.bool))
-    token_for_slot = token_for_slot[:, : E * C]
-    occupied = occupied[:, : E * C].reshape(B, E, C)
+    def experts_here():
+        """(first, count) of the experts this rank's buffers hold."""
+        if eaxis is None:
+            return 0, E
+        mesh, i = eaxis
+        n = E // mesh.size(i)
+        return mesh.get_local_rank(i) * n, n
 
-    # ---- dispatch: gather token activations into expert buffers -------------
-    xe = torch.gather(x, 1, token_for_slot[..., None].expand(B, E * C, d))
-    xe = xe.reshape(B, E, C, d)
-    xe = torch.where(occupied[..., None], xe, torch.zeros((), dtype=x.dtype,
-                                                          device=dev))
-    xe = sh.act(xe, "batch", "experts", None, None)
+    def route(x, top_e):
+        """Sort-based slotting of a block of rows, and their tokens
+        gathered into this rank's experts' buffers ``[b, E_here, C, d]``;
+        with each choice's buffer position and whether it fits."""
+        b = x.shape[0]
+        e_flat = top_e.reshape(b, T * k)
+        e_sorted, order = torch.sort(e_flat, dim=-1, stable=True)
+        idx = torch.arange(T * k, device=dev)[None, :]
+        # start of each expert's run: left-sided search of the sorted ids
+        starts = torch.searchsorted(
+            e_sorted, torch.arange(E, device=dev).expand(b, E).contiguous())
+        slot_sorted = idx - torch.gather(starts, 1, e_sorted)
+        # invert the sort: the slot of each original choice position
+        inv = torch.empty_like(order).scatter_(
+            1, order, idx.expand(b, T * k).contiguous())
+        slot = torch.gather(slot_sorted, 1, inv)             # [b, Tk]
+        valid = slot < C
+        tok = (idx // k).expand(b, T * k)                    # token of choice
+
+        # for each (b, e, c) slot, which token fills it; overflow -> sink
+        flat_pos = torch.where(valid, e_flat * C + slot, E * C)
+        token_for_slot = torch.zeros((b, E * C + 1), dtype=torch.int64,
+                                     device=dev).scatter_(1, flat_pos, tok)
+        occupied = torch.zeros((b, E * C + 1), dtype=torch.bool,
+                               device=dev).scatter_(
+            1, flat_pos, torch.ones_like(flat_pos, dtype=torch.bool))
+        e0, n = experts_here()
+        token_for_slot = token_for_slot[:, e0 * C:(e0 + n) * C]
+        occupied = occupied[:, e0 * C:(e0 + n) * C].reshape(b, n, C)
+
+        # dispatch: gather token activations into expert buffers
+        xe = torch.gather(x, 1,
+                          token_for_slot[..., None].expand(b, n * C, d))
+        xe = xe.reshape(b, n, C, d)
+        xe = torch.where(occupied[..., None], xe,
+                         torch.zeros((), dtype=x.dtype, device=dev))
+        return xe, torch.where(valid, e_flat * C + slot, 0), valid
+
+    xe, gather_pos, valid = sh.local(route, [epl, ipl, ipl], (x, xpl),
+                                     (top_e, cpl))
 
     # ---- expert FFN (SwiGLU) ------------------------------------------------
     def ffn(xe, w_gate, w_up, w_down):
@@ -122,16 +148,26 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig,
     # each (batch row, expert) is its own product: the FFN runs on the
     # local shards, the weights gathered but for the expert axis
     ws = (p["w_gate"], p["w_up"], p["w_down"])
-    xpl = sh.placements(xe.shape, "batch", "experts", None, None)
     wpl = sh.placements(ws[0].shape, "experts", None, None)
-    ye = sh.local(ffn, xpl, (xe, xpl), *((w_, wpl) for w_ in ws))
-    ye = sh.act(ye, "batch", "experts", None, None)
+    ye = sh.local(ffn, epl, (xe, epl), *((w_, wpl) for w_ in ws))
+
+    def combine(ye, gather_pos, valid, top_p):
+        """Each choice's expert output, weighted, summed over a token's
+        choices, of the choices whose expert is here (the others add
+        zero): ``[b, T, d]``, a partial sum over the experts' mesh dim."""
+        b = ye.shape[0]
+        e0, n = experts_here()
+        here = gather_pos - e0 * C
+        mine = valid & (here >= 0) & (here < n * C)
+        ye_flat = ye.reshape(b, n * C, d)
+        y_choice = torch.gather(
+            ye_flat, 1,
+            torch.where(mine, here, 0)[..., None].expand(b, T * k, d))
+        p_flat = top_p.reshape(b, T * k)
+        y_choice = y_choice * (p_flat * mine)[..., None].to(x.dtype)
+        return y_choice.reshape(b, T, k, d).sum(dim=2)
 
     # ---- combine: gather expert outputs back to (token, choice) -------------
-    gather_pos = torch.where(valid, e_flat * C + slot, 0)
-    ye_flat = ye.reshape(B, E * C, d)
-    y_choice = torch.gather(ye_flat, 1,
-                            gather_pos[..., None].expand(B, T * k, d))
-    y_choice = y_choice * (p_flat * valid)[..., None].to(x.dtype)
-    y = y_choice.reshape(B, T, k, d).sum(dim=2)
+    y = sh.local(combine, sh.summed(xpl, eaxis), (ye, epl),
+                 (gather_pos, ipl), (valid, ipl), (top_p, cpl))
     return y, aux

@@ -120,15 +120,20 @@ def _ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig,
         # L[l, m] = exp(cum_l - cum_m) for m <= l
         rel = cumq[:, :, None, :] - cumq[:, None, :, :]        # [B,Q,Q,H]
         Lmat = torch.where(li > 0, torch.exp(rel), 0.0)
+        # the products run left to right, a pair at a time (as einsum does
+        # without opt_einsum, whose paths can form [B, H, Q, P, S] outer
+        # products that the backward keeps for every chunk)
         sc = torch.einsum("blhs,bmhs->blmh", cq, bq)           # C_l . B_m
-        y_diag = torch.einsum("blmh,blmh,bmh,bmhp->blhp",
-                              sc, Lmat, dtq, xq)
+        w = sc * Lmat * dtq[:, None]                           # [B,Q,Q,H]
+        y_diag = torch.einsum("blmh,bmhp->blhp", w, xq)
         # contribution of the carried state
-        y_off = torch.einsum("blhs,bhps,blh->blhp", cq, state, seg_start)
+        y_off = torch.einsum("blhs,bhps->blhp", cq, state) \
+            * seg_start[..., None]
         # state update: decay the old state over the chunk + the chunk's
         chunk_decay = torch.exp(cumq[:, -1, :])                # [B,H]
+        u = bq * seg_end[..., None] * dtq[..., None]           # [B,Q,H,S]
         state = state * chunk_decay[:, :, None, None] + torch.einsum(
-            "blhs,blh,blh,blhp->bhps", bq, seg_end, dtq, xq)
+            "blhs,blhp->bhps", u, xq)
         ys.append((y_diag + y_off).to(x.dtype))
     y = torch.stack(ys, dim=1).reshape(B, Tp, H, P)[:, :T]
     return y, state

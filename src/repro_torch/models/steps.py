@@ -163,13 +163,29 @@ def init_train_state(model: Model,
             "opt": adamw_init(params, opt_cfg.moment_dtype)}
 
 
-def _grad(loss: torch.Tensor, leaves):
-    """d loss / d leaf for every leaf; zeros for a leaf the loss does not
-    reach (a frontend adapter with no frontend in the batch), as the
-    reference's ``value_and_grad`` gives."""
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)]
+def _backward(loss: torch.Tensor, leaves, sink) -> None:
+    """Backpropagate ``loss`` to ``leaves``, handing ``sink(i, g)`` leaf
+    i's gradient as soon as it is complete (the leaf's ``.grad`` is left
+    empty); a leaf the loss does not reach gets no call.  Under a mesh a
+    weight's gradient comes out of its last use a partial sum at its
+    gathered size (DTensor does not lay a gradient out as its leaf): the
+    sink reduces it to the leaf's shard there, so no more than a layer's
+    gathered gradients are alive at once, as the reference's partitioned
+    backward holds them."""
+    handles = []
+    for i, p in enumerate(leaves):
+        p.grad = None
+
+        def hook(p, i=i):
+            g, p.grad = p.grad, None
+            sink(i, g)
+
+        handles.append(p.register_post_accumulate_grad_hook(hook))
+    try:
+        torch.autograd.backward(loss, inputs=leaves)
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch, *,
@@ -179,20 +195,36 @@ def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch, *,
     """(loss, parts, grads) of the training loss at ``params``: the
     gradient half of a train step.  ``grads`` is ``{name: tensor}`` in the
     parameters' dtype, or in ``accum_dtype`` when ``microbatches > 1``
-    (the parts summed, then divided once)."""
+    (the parts summed, then divided once); under a mesh each laid out as
+    its parameter, a partial sum reduced in fp32 with one microbatch (the
+    dtype the optimizer reads it in) and in ``accum_dtype`` with several
+    (the sum's)."""
     _bind(model, params)
     sh = UNSHARDED if sh is None else sh
     names = list(params)
     leaves = [params[n] for n in names]
     if microbatches == 1:
         loss, parts = _loss_fn(model, batch, remat, sh)
-        grads = _grad(loss, leaves)
+        grads = [None] * len(leaves)
+
+        def keep(i, g):
+            grads[i] = sh.like(g, leaves[i], torch.float32)
+
+        _backward(loss, leaves, keep)
+        # zeros for a leaf the loss does not reach (a frontend adapter with
+        # no frontend in the batch), as the reference's value_and_grad
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
             dict(zip(names, grads))
     # zeros_like: a DTensor parameter's sum takes its placements
     g_sum = [torch.zeros_like(p, dtype=accum_dtype) for p in leaves]
     l_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     parts_all = []
+
+    def add(i, g):
+        g_sum[i].add_(sh.like(g, leaves[i], accum_dtype).to(accum_dtype))
+
     for i in range(microbatches):
         # rows [i * rows, (i + 1) * rows): the reference's reshape to
         # [microbatches, rows, ...] and its row i (a slice, which DTensor also
@@ -200,9 +232,7 @@ def loss_and_grads(model: Model, params: Dict[str, torch.Tensor], batch, *,
         rows = next(iter(batch.values())).shape[0] // microbatches
         mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
         loss, parts = _loss_fn(model, mb, remat, sh)
-        grads = _grad(loss, leaves)
-        for a, g in zip(g_sum, grads):
-            a.add_(g.to(accum_dtype))
+        _backward(loss, leaves, add)
         l_sum = l_sum + loss.detach()
         parts_all.append({k: v.detach() for k, v in parts.items()})
     grads = {n: a / microbatches for n, a in zip(names, g_sum)}

@@ -159,13 +159,29 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- helpers
     def _embed(self, tokens, sh: Shardings = UNSHARDED):
-        # the gather [B, T, d] runs on each rank's token shard over the
-        # whole table (gathered, as an FSDP weight is), laid out as the
-        # tokens (DTensor's own index_put backward fails on some torch
-        # versions)
+        # the gather [B, T, d] runs on each rank's token shard (DTensor's
+        # own index_put backward fails on some torch versions) over its
+        # vocab shard of the table, gathered over the FSDP axes: a token
+        # outside the shard reads zeros, and the sum over the vocab's mesh
+        # dim (a partial sum until the layout below reduces it) is its row
+        # (Megatron's vocab-parallel embedding: no rank holds, nor in the
+        # backward zero-fills, the whole [V, d] table)
         tpl = sh.placements(tokens.shape, "batch")
-        x = sh.local(lambda table, tok: table[tok], tpl,
-                     (self.embed, sh.placements(self.embed.shape)),
+        epl = sh.placements(self.embed.shape, "vocab")
+        axis = sh.axis_of(epl, 0)
+
+        def lookup(table, tok):
+            if axis is None:
+                return table[tok]
+            mesh, i = axis
+            local = tok - mesh.get_local_rank(i) * table.shape[0]
+            mine = (local >= 0) & (local < table.shape[0])
+            rows = table[torch.where(mine, local, 0)]
+            return torch.where(mine[..., None], rows,
+                               torch.zeros((), dtype=rows.dtype,
+                                           device=rows.device))
+
+        x = sh.local(lookup, sh.summed(tpl, axis), (self.embed, epl),
                      (tokens, tpl))
         x = x * (self.cfg.d_model ** 0.5)              # in the param dtype
         return sh.act(x, "batch", "seq", "embed")
@@ -174,10 +190,12 @@ class Model(nn.Module):
         x = frontend_embeds.to(self.embed.dtype) @ self.frontend_adapter
         return sh.act(x, "batch", "seq", "embed")
 
-    def _logits(self, x):
+    def _logits(self, x, unembed=None):
+        """Final norm, unembedding (``unembed`` in the parameter's place:
+        the parameter laid out for the product) and vocab mask."""
         cfg = self.cfg
         x = rms_norm(x, self.final_norm, cfg.rms_eps)
-        logits = x @ self.unembed
+        logits = x @ (self.unembed if unembed is None else unembed)
         if cfg.vocab_real and cfg.vocab_real != cfg.vocab:
             mask = torch.arange(cfg.vocab, device=x.device) < cfg.vocab_real
             logits = torch.where(mask[None, None, :], logits, -1e9)
@@ -196,8 +214,19 @@ class Model(nn.Module):
     def _sharded_logits(self, x, sh: Shardings):
         """The logits, vocab-sharded under ``sh`` (the reference constrains
         them before the vocab mask; the mask is elementwise, so after it
-        gives the same values)."""
-        logits = self._logits(self._gathered(x, sh))
+        gives the same values).  When the unembedding takes a gradient the
+        product takes its vocab shard gathered over the FSDP axes, so it
+        runs on each rank's rows where they lie.  Left to DTensor, that
+        product moves the rows instead when a rank holds fewer bytes of
+        them than of the weight, and its backward then gathers the whole
+        batch's logits gradient (4.6 GiB twice in qwen1.5-110b's train_4k
+        cell on the multi-pod mesh).  Without a backward (prefill, decode)
+        DTensor chooses."""
+        h = self._gathered(x, sh)
+        w = sh.act(self.unembed, None, "vocab") \
+            if self.unembed.requires_grad else self.unembed
+        logits = self._logits(h) if w is self.unembed else \
+            self._logits(h, w)
         return sh.act(logits, "batch", "seq_unsharded", "vocab")
 
     def _block(self, x, layer: Block, *, positions, causal: bool,

@@ -3,24 +3,28 @@ own (a process keeps one default process group, and xdist reuses its
 workers across files).
 
 * Four real ranks: a 4-process gloo run on a ``(2, 2)`` mesh through a
-  ``FileStore`` under ``tmp_path``.  SMOKE ``llama3.2-1b``,
-  ``granite-moe-1b-a400m``, ``mamba2-2.7b``, ``recurrentgemma-2b`` (its
-  sequence past its window) and ``seamless-m4t-medium`` (with its audio
-  frontend) in fp32 each take one sharded train step (2 microbatches,
-  remat; ``shard_state`` + ``sh``; the loss vocab-parallel) whose loss,
-  grad norm and updated parameters equal the unsharded step's at rtol =
-  atol = 1e-5; then each one's sharded prefill and one decode token
-  equal the unsharded ones.
+  ``FileStore`` under ``tmp_path`` (the harness of
+  ``tests/test_torch_pod.py``, which runs the same on ``(2, 2, 2)``).
+  SMOKE ``llama3.2-1b``, ``granite-moe-1b-a400m``, ``mamba2-2.7b``,
+  ``recurrentgemma-2b`` (its sequence past its window) and
+  ``seamless-m4t-medium`` (with its audio frontend) in fp32 each take one
+  sharded train step (2 microbatches, remat; ``shard_state`` + ``sh``;
+  the loss vocab-parallel) whose loss, grad norm and updated parameters
+  equal the unsharded step's at rtol = atol = 1e-5; then each one's
+  sharded prefill and one decode token equal the unsharded ones.
 * The fake backend, in one process: the pod meshes (the leading sub-grid
-  of a larger group, an error for a smaller one); the dry run's cell at
-  SMOKE width on a fake ``(2, 2)`` world, under the ``tp`` and ``dp``
-  policies: argument bytes equal the summed local shard bytes worked out
-  from the placements, the peak covers them, collectives are traced
-  under ``tp``, and under ``dp`` no activation is all-reduced and two
-  are all-gathered (DTensor's layout choices, named in the test); FLOPs are counted on each rank's local ops (a quarter of a
-  matmul split four ways), not DTensor's global ones; and the CLI's
-  ``long_500k`` cell of a full-attention arch is recorded as skipped
-  with the reference's reason.
+  of a larger group, an error for a smaller one) and the multi-pod
+  mesh's step mesh (``('pod', 'data')`` as one dim over the same ranks);
+  the dry run's cell at SMOKE width on a fake ``(2, 2)`` world, under the
+  ``tp`` and ``dp`` policies: argument bytes equal the summed local shard
+  bytes worked out from the placements, the peak covers them,
+  collectives are traced under ``tp``, and under ``dp`` no activation is
+  all-reduced and two are all-gathered (DTensor's layout choices, named
+  in the test); FLOPs are counted on each rank's local ops (a quarter of
+  a matmul split four ways), not DTensor's global ones; a bf16 step over
+  a ``(1, 1)`` and a ``(1, 1, 1)`` mesh equals the plain step bit for
+  bit; and the CLI's ``long_500k`` cell of a full-attention arch is
+  recorded as skipped with the reference's reason.
 """
 from __future__ import annotations
 
@@ -35,81 +39,12 @@ import torch
 
 from repro.configs import get as ref_get
 from repro.configs.shapes import skip_reason as ref_skip_reason
-from repro_torch.configs import get
-from repro_torch.data.tokens import TokenPipeline
-from repro_torch.models import (Model, init_train_state, make_prefill_step,
-                                make_serve_step, make_train_step, pad_cache)
+
+from test_torch_pod import (GLOO_ARCHS, check_prefill_and_decode,
+                            check_train_step, run_ranks)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-TOL = dict(rtol=1e-5, atol=1e-5)
-GLOO_ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "mamba2-2.7b",
-              "recurrentgemma-2b", "seamless-m4t-medium")
-B, T = 4, 16          # T past recurrentgemma's SMOKE window of 8
-
-
-def _batch(cfg):
-    """The train batch, with frontend frames for an arch that has one."""
-    batch = TokenPipeline(cfg.vocab_unpadded, B, T, seed=3,
-                          device="cpu")(0)
-    if cfg.frontend != "none":
-        g = torch.Generator().manual_seed(5)
-        batch["frontend"] = 0.1 * torch.randn(
-            (B, cfg.frontend_tokens, cfg.d_model), generator=g)
-    return batch
-
-
-def _decode_pos(cfg):
-    return T + (cfg.frontend_tokens
-                if cfg.frontend != "none" and not cfg.is_encdec else 0)
-
-_GLOO_RANK = r"""
-import sys
-import torch
-import torch.distributed as dist
-rank, world, store, out = int(sys.argv[1]), 4, sys.argv[2], sys.argv[3]
-dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                        world_size=world)
-from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import distribute_tensor
-from torch.distributed.tensor.experimental import implicit_replication
-from repro_torch.configs import get
-from repro_torch.data.tokens import TokenPipeline
-from repro_torch.launch.sharding import (batch_placements, make_shardings,
-                                         shard_state)
-from repro_torch.models import (Model, init_train_state, make_prefill_step,
-                                make_serve_step, make_train_step, pad_cache)
-sys.path.insert(0, sys.argv[5])
-from test_torch_dryrun import _batch, _decode_pos
-mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-res = {}
-for arch in sys.argv[4].split(","):
-    cfg = get(arch, smoke=True)
-    model = Model(cfg, device="cpu", seed=0)
-    batch = _batch(cfg)
-    pl = batch_placements(mesh, batch, %(B)d)
-    sharded = {k: distribute_tensor(v, mesh, pl[k]) for k, v in batch.items()}
-    state = shard_state(init_train_state(model), mesh)
-    step = make_train_step(model, sh=make_shardings(mesh), microbatches=2,
-                           remat=True)
-    state, met = step(state, sharded)
-    r = {"loss": met["loss"].full_tensor(),
-         "grad_norm": met["grad_norm"].full_tensor(),
-         "params": {k: v.detach().full_tensor()
-                    for k, v in state["params"].items()}}
-    logits, cache = make_prefill_step(model, sh=make_shardings(mesh))(
-        {k: v for k, v in sharded.items() if k != "labels"})
-    with implicit_replication():
-        cache = pad_cache(model, cache, 2)
-    tok = distribute_tensor(batch["tokens"][:, :1], mesh, pl["tokens"])
-    dlog, _ = make_serve_step(model, sh=make_shardings(mesh, sp=False))(
-        cache, tok, _decode_pos(cfg))
-    r["prefill"] = logits.detach().full_tensor()
-    r["decode"] = dlog.detach().full_tensor()
-    res[arch] = r
-if rank == 0:
-    torch.save(res, out)
-dist.destroy_process_group()
-""" % {"B": B, "T": T}
+B = 4
 
 
 def _env():
@@ -118,58 +53,18 @@ def _env():
 
 @pytest.fixture(scope="module")
 def gloo_run(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("gloo")
-    out = tmp / "sharded.pt"
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _GLOO_RANK, str(r), str(tmp / "store"),
-         str(out), ",".join(GLOO_ARCHS), str(Path(__file__).parent)],
-        env=_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(4)]
-    try:
-        outs = [p.communicate(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-4000:]
-    return torch.load(out)
-
-
-def _unsharded(arch):
-    cfg = get(arch, smoke=True)
-    model = Model(cfg, device="cpu", seed=0)
-    batch = _batch(cfg)
-    state = init_train_state(model)
-    state, met = make_train_step(model, microbatches=2, remat=True)(
-        state, batch)
-    return model, batch, state, met
+    return run_ranks(tmp_path_factory.mktemp("gloo"), (2, 2),
+                     ("data", "model"), GLOO_ARCHS, B)
 
 
 @pytest.mark.parametrize("arch", GLOO_ARCHS)
 def test_gloo_sharded_train_step_equals_unsharded(gloo_run, arch):
-    got = gloo_run[arch]
-    _, _, state, met = _unsharded(arch)
-    torch.testing.assert_close(got["loss"], met["loss"], **TOL)
-    torch.testing.assert_close(got["grad_norm"], met["grad_norm"], **TOL)
-    assert set(got["params"]) == set(state["params"])
-    for k, v in state["params"].items():
-        torch.testing.assert_close(got["params"][k], v.detach(), **TOL,
-                                   msg=k)
+    check_train_step(gloo_run[arch], arch, B)
 
 
 @pytest.mark.parametrize("arch", GLOO_ARCHS)
 def test_gloo_sharded_prefill_and_decode_equal_unsharded(gloo_run, arch):
-    got = gloo_run[arch]
-    model, batch, _, _ = _unsharded(arch)
-    with torch.no_grad():
-        logits, cache = make_prefill_step(model)(
-            {k: v for k, v in batch.items() if k != "labels"})
-        cache = pad_cache(model, cache, 2)
-        dlog, _ = make_serve_step(model)(cache, batch["tokens"][:, :1],
-                                         _decode_pos(get(arch, smoke=True)))
-    torch.testing.assert_close(got["prefill"], logits, **TOL)
-    torch.testing.assert_close(got["decode"], dlog, **TOL)
+    check_prefill_and_decode(gloo_run[arch], arch, B)
 
 
 _FAKE = r"""
@@ -201,6 +96,12 @@ out["meshes"] = [[list(m.shape), list(m.mesh_dim_names),
                   m.mesh.flatten().tolist()[:3], m.device_type,
                   list(M.dp_axes(m)), list(M.fsdp_axes(m)), M.tp_axis(m)]
                  for m in (single, multi, host)]
+step = M.step_mesh(multi)
+out["step_mesh"] = [list(step.shape), list(step.mesh_dim_names),
+                    M.step_mesh(multi) is step, M.step_mesh(step) is step,
+                    M.step_mesh(single) is single, list(M.dp_axes(step)),
+                    dist.get_process_group_ranks(step.get_group(0)),
+                    dist.get_process_group_ranks(step.get_group(1))]
 D.init_fake_world(256)
 try:
     M.make_production_mesh(multi_pod=True)
@@ -269,27 +170,34 @@ host = M.make_host_mesh(device_type="cpu")
 cfg = dataclasses.replace(get("llama3.2-1b", smoke=True),
                           param_dtype="bfloat16")
 data = TokenPipeline(cfg.vocab_unpadded, 4, 16, device="cpu")
+# (and over the multi-pod mesh's three axes, one device each)
+pod3 = init_device_mesh("cpu", (1, 1, 1),
+                        mesh_dim_names=("pod", "data", "model"))
 runs = []
-for sharded in (True, False):
+for mesh_ in (host, pod3, None):
     model = Model(cfg, device="cpu", seed=0)
     state = init_train_state(model)
-    if sharded:
-        state = shard_state(state, host)
-    step = make_train_step(model, sh=make_shardings(host) if sharded
-                           else None, microbatches=2, remat=True)
+    if mesh_ is not None:
+        state = shard_state(state, mesh_)
+    step = make_train_step(model, sh=make_shardings(mesh_),
+                           microbatches=2, remat=True)
     losses = []
     for s in range(2):
         b = data(s)
-        if sharded:
-            pl = batch_placements(host, b, 4)
-            b = {k: distribute_tensor(v, host, pl[k]) for k, v in b.items()}
+        if mesh_ is not None:
+            pl = batch_placements(mesh_, b, 4)
+            b = {k: distribute_tensor(v, M.step_mesh(mesh_), pl[k])
+                 for k, v in b.items()}
         state, m = step(state, b)
         losses.append(float(m["loss"]))
     runs.append((losses, {k: getattr(v, "to_local", lambda: v)().detach()
                           for k, v in state["params"].items()}))
-out["host_losses"] = [runs[0][0], runs[1][0]]
-out["host_params_equal"] = all(torch.equal(runs[0][1][k], runs[1][1][k])
-                               for k in runs[1][1])
+out["host_losses"] = [runs[0][0], runs[2][0]]
+out["host_params_equal"] = all(torch.equal(runs[0][1][k], runs[2][1][k])
+                               for k in runs[2][1])
+out["pod_losses"] = runs[1][0]
+out["pod_params_equal"] = all(torch.equal(runs[1][1][k], runs[2][1][k])
+                              for k in runs[2][1])
 D.OUT_DIR = __import__("pathlib").Path(sys.argv[1])
 try:
     D.main(["--arch", "llama3.2-1b", "--shape", "long_500k"])
@@ -325,6 +233,19 @@ def test_pod_meshes(fake_run):
         assert "no CUDA device" in out["host_no_card"]
 
 
+def test_step_mesh_flattens_pod_and_data(fake_run):
+    out, _ = fake_run
+    shape, names, cached, idem, single, dp, dp_ranks, tp_ranks = \
+        out["step_mesh"]
+    assert shape == [32, 16] and names == ["pod+data", "model"]
+    assert cached and idem and single
+    assert dp == ["pod", "data"]
+    # rank 0's data-parallel group: every (pod, data) pair at model 0, pod
+    # major, as the reference's ('pod', 'data'); its model group as before
+    assert dp_ranks == list(range(0, 512, 16))
+    assert tp_ranks == list(range(16))
+
+
 def test_shard_state_refuses_another_device(fake_run):
     out, _ = fake_run
     assert "a cpu tensor on a cuda mesh" in out["moved"]
@@ -335,6 +256,14 @@ def test_host_mesh_step_is_the_plain_step_bit_for_bit(fake_run):
     sharded, plain = out["host_losses"]
     assert sharded == plain
     assert out["host_params_equal"]
+
+
+def test_pod_mesh_step_is_the_plain_step_bit_for_bit(fake_run):
+    # (1, 1, 1) over ("pod", "data", "model"): chip_smoke.py phase 21's
+    # second mesh, through its ("pod+data", "model") step mesh
+    out, _ = fake_run
+    assert out["pod_losses"] == out["host_losses"][1]
+    assert out["pod_params_equal"]
 
 
 def test_flops_are_counted_per_device(fake_run):
@@ -400,3 +329,99 @@ def test_dryrun_skips_long_500k_for_full_attention(fake_run):
     assert rec["status"] == "skipped"
     assert rec["reason"] == ref_skip_reason(ref_get("llama3.2-1b"),
                                             "long_500k")
+
+
+# ---------------------------------------------------------------------------
+# what a device holds at the peak of a train step, at SMOKE width
+# ---------------------------------------------------------------------------
+
+_MEMORY = r"""
+import dataclasses, json
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun as D
+get, T, out = D.get, 16, {}
+
+
+def cell(arch, shape, B, layers=None):
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                        "model")
+    n = 1
+    for s in shape:
+        n *= s
+    D.init_fake_world(n)
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=names)
+    cfg = get(arch, smoke=True)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    D.get = lambda a: cfg
+    m = D.run_cell(arch, "smoke", "x", save=False, verbose=False,
+                   spec=ShapeSpec("smoke", T, B, "train"),
+                   mesh=mesh)["memory"]
+    return m["argument_size_in_bytes"], m["temp_size_in_bytes"]
+
+
+for arch in ("llama3.2-1b", "granite-moe-1b-a400m", "mamba2-2.7b"):
+    out[arch] = {"depth": [cell(arch, (4, 2), 16, L) for L in (1, 2)]}
+out["granite-moe-1b-a400m"]["pods"] = [
+    cell("granite-moe-1b-a400m", (2, 2), 8, 1),
+    cell("granite-moe-1b-a400m", (2, 2, 2), 16, 1)]
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def memory_run():
+    p = subprocess.run([sys.executable, "-c", _MEMORY], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-4000:]
+    line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+@pytest.mark.parametrize("arch", ("llama3.2-1b", "granite-moe-1b-a400m",
+                                  "mamba2-2.7b"))
+def test_peak_grows_a_layer_by_its_shards_and_boundary(memory_run, arch):
+    # one more layer on a fake (4, 2) mesh, batch 16 x 16, fp32: the
+    # peak's temporaries may grow by the layer's fp32 gradient shards (a
+    # third of the arguments' growth: parameters, m and v) and the
+    # activation its checkpoint saves ([rows, T / 2, d] on each rank).
+    # A gradient kept at its gathered size until the backward ends (a
+    # partial sum over the data axis) grows it by 4x that.
+    from repro_torch.configs import get
+    (a1, t1), (a2, t2) = memory_run[arch]["depth"]
+    boundary = (16 // 4) * (16 // 2) * get(arch, smoke=True).d_model * 4
+    assert t2 - t1 <= (a2 - a1) // 3 + boundary, (t2 - t1, a2 - a1)
+
+
+def test_peak_holds_when_pods_add_rows(memory_run):
+    # granite-moe (a layer) on (2, 2) with batch 8 and on (2, 2, 2) with
+    # batch 16: the same rows a rank, so no more temporaries a device (the
+    # MoE's dispatch and combine run on each rank's rows, not the whole
+    # batch)
+    (_, single), (_, pods) = memory_run["granite-moe-1b-a400m"]["pods"]
+    assert pods <= single
+
+
+def test_ssd_scan_saves_no_outer_product():
+    # the SSD scan at mamba2-2.7b's chunk, heads of a 16-way shard, state
+    # and head widths saves nothing larger than a chunk's [Q, Q, H],
+    # [Q, H, S] or [H, P, S] for the backward, whatever contraction paths
+    # einsum would pick
+    from repro_torch.configs import get
+    from repro_torch.models.ssm import _ssd_chunked
+    cfg = get("mamba2-2.7b")
+    Q, H, P, S = cfg.ssm_chunk, cfg.ssm_heads // 16, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    T_ = 2 * Q
+
+    def leaf(*shape):
+        return torch.empty(shape, device="meta", requires_grad=True)
+
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t.untyped_storage().nbytes()) or t,
+            lambda t: t):
+        _ssd_chunked(leaf(1, T_, H, P), leaf(1, T_, H), leaf(H),
+                     leaf(1, T_, H, S), leaf(1, T_, H, S), cfg)
+    assert max(saved) <= 4 * max(Q * Q * H, Q * H * S, H * P * S)

@@ -7,9 +7,11 @@
   train-state, batch and decode-cache placements, leaf for leaf against
   the reference's ``PartitionSpec``s converted here.  The reference's
   leaves are layer-stacked; its spec of a stacked leaf is compared with
-  its leading (layer) entry removed.  Two readings of a spec hold on both
-  sides: several axes on one dim shard it in mesh order, and an axis of
-  one device replicates (sharding over one device is the whole dim).
+  its leading (layer) entry removed.  Three readings of a spec hold on
+  both sides: several axes on one dim shard it in mesh order, an axis of
+  one device replicates (sharding over one device is the whole dim), and
+  placements are over the step mesh, where ``('pod', 'data')`` is one dim
+  of their product's size (the same rows on the same ranks).
 * ``configs/shapes.py``: ``SHAPES``, ``applicable`` and ``skip_reason``
   (32 runnable cells); ``input_specs`` and ``Model.decode_cache_specs``
   shapes and dtypes, per layer, for every arch x shape.  The one named
@@ -42,6 +44,7 @@ from repro.train.optimizer import adamw_init as ref_adamw_init
 from repro_torch.configs import ARCHS, get
 from repro_torch.configs import shapes as PSH
 from repro_torch.launch import hlo as PH
+from repro_torch.launch import mesh as PM
 from repro_torch.launch import sharding as PS
 from repro_torch.models import Model
 
@@ -57,15 +60,32 @@ def _meshes(key):
     return RefMesh(shape, names), PS.AbstractMesh(shape, names)
 
 
+def _step_dims(shape, names):
+    """The step mesh's dims as (pod axes, size): ``pod`` and ``data``
+    merged into one dim, every other axis its own."""
+    dims = []
+    for a, n in zip(names, shape):
+        if a == "data" and dims and dims[-1][0] == ("pod",):
+            dims[-1] = (("pod", "data"), dims[-1][1] * n)
+        else:
+            dims.append(((a,), n))
+    return dims
+
+
 def _placements(spec, shape, names):
-    """A reference ``PartitionSpec`` as DTensor placements, independently
-    of the port: mesh dim i is Shard(d) where the spec puts axis i on dim
-    d (an axis of one device replicates)."""
-    out = [Replicate()] * len(names)
+    """A reference ``PartitionSpec`` as DTensor placements on the step
+    mesh, independently of the port: step dim i is Shard(d) where the
+    spec puts its axes on dim d (a dim of one device replicates).  The
+    reference never splits ``('pod', 'data')``: a spec holds both or
+    neither."""
+    dims = _step_dims(shape, names)
+    out = [Replicate()] * len(dims)
     for d, ax in enumerate(spec):
-        for a in ((ax,) if isinstance(ax, str) else tuple(ax or ())):
-            i = names.index(a)
-            if shape[i] > 1:
+        axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        for i, (group, n) in enumerate(dims):
+            held = [a in axes for a in group]
+            assert all(held) or not any(held), (spec, group)
+            if all(held) and n > 1:
                 out[i] = Shard(d)
     return tuple(out)
 
@@ -238,10 +258,23 @@ def _check_cache(ref, layers, cfg, shape, names, strip):
 
 def test_spec_order_and_act_on_plain_tensors():
     mesh = PS.AbstractMesh((2, 2, 2), ("pod", "data", "model"))
-    assert PS.spec_to_placements((("pod", "data"), "model"), mesh) == (
-        Shard(0), Shard(0), Shard(1))
+    # ('pod', 'data') is one dim of the step mesh: one Shard on it
+    flat = PS.AbstractMesh((4, 2), ("pod+data", "model"))
+    assert PM.step_mesh(mesh) == flat and PM.step_mesh(flat) == flat
+    for m in (mesh, flat):
+        assert PS.spec_to_placements((("pod", "data"), "model"), m) == (
+            Shard(0), Shard(1))
+        assert PS.spec_to_placements((None, ("pod", "data", "model")),
+                                     m) == (Shard(1), Shard(1))
+        with pytest.raises(AssertionError):
+            PS.spec_to_placements((("data", "pod"),), m)
+    # one of the two alone is not a dim of the step mesh
     with pytest.raises(AssertionError):
-        PS.spec_to_placements((("data", "pod"),), mesh)
+        PS.spec_to_placements(("data",), mesh)
+    single = PS.AbstractMesh((2, 2), ("data", "model"))
+    assert PM.step_mesh(single) is single
+    assert PS.spec_to_placements((("data", "model"),), single) == (
+        Shard(0), Shard(0))
     sh = PS.make_shardings(mesh)
     x = torch.ones(4, 4)
     assert sh.act(x, "batch", "seq") is x and sh.whole(x) is x
