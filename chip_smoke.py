@@ -2939,8 +2939,9 @@ def pod_phase(torch, np) -> dict:
     and every parameter equal bit for bit; seconds a step of both (the
     difference is DTensor's dispatch), the busy share of one step of
     each, the peak memory's rise over the plain steps; then the same
-    steps over a ``(1, 1, 1)`` ``("pod", "data", "model")`` mesh, whose
-    step mesh flattens ``("pod", "data")``, bit for bit too.  (b) The dry run's
+    steps over a ``(1, 1, 1)`` ``("pod", "data", "model")`` mesh, which
+    ``make_pod_mesh`` lays out with ``("pod", "data")`` one dim, bit for
+    bit too.  (b) The dry run's
     reckoning of the same cell on a fake one-rank world in a subprocess:
     argument bytes equal the live state's and batch's bytes exactly, the
     reckoned peak within 25% of the measured rise, the traced FLOPs
@@ -2950,7 +2951,6 @@ def pod_phase(torch, np) -> dict:
     (b) and (c) trace on the meta device, on the CPU, beside (a)."""
     import os
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, \
         distribute_tensor
 
@@ -2958,7 +2958,7 @@ def pod_phase(torch, np) -> dict:
     from repro_torch.configs.registry import TRAIN_MICROBATCHES
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch import flops as FL
-    from repro_torch.launch.mesh import make_host_mesh, step_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_pod_mesh
     from repro_torch.launch.sharding import (batch_placements,
                                              make_shardings, shard_state)
     from repro_torch.models import Model, init_train_state, make_train_step
@@ -2994,16 +2994,15 @@ def pod_phase(torch, np) -> dict:
             the last batch again, profiled or not): (losses, seconds a
             step, the parameters after, the state's bytes, the profiled
             step's device ms and wall s)."""
-            smesh = step_mesh(mesh)
             torch.cuda.empty_cache()
             model = Model(cfg, device=dev, seed=0)
             state = shard_state(init_train_state(model, opt), mesh)
-            check(all(isinstance(t, DTensor) and t.device_mesh == smesh
+            check(all(isinstance(t, DTensor) and t.device_mesh == mesh
                       and all(isinstance(p, Replicate) for p in t.placements)
                       for t in (*state["params"].values(),
                                 *state["opt"]["m"].values())),
                   f"pod: a placement on the {tuple(mesh.shape)} mesh is not "
-                  f"Replicate on its step mesh")
+                  f"Replicate")
             live = sum(t.to_local().nbytes for t in (
                 *state["params"].values(), *state["opt"]["m"].values(),
                 *state["opt"]["v"].values(), state["opt"]["step"]))
@@ -3013,7 +3012,7 @@ def pod_phase(torch, np) -> dict:
             pl = batch_placements(mesh, batches[0], B)
 
             def placed(b_):
-                return {k: distribute_tensor(v, smesh, pl[k])
+                return {k: distribute_tensor(v, mesh, pl[k])
                         for k, v in b_.items()}
 
             losses, secs = [], []
@@ -3042,12 +3041,12 @@ def pod_phase(torch, np) -> dict:
             s_losses, s_secs, sharded, live_bytes, s_busy, s_wall = \
                 sharded_steps(mesh, profile=True)
             torch.cuda.empty_cache()
-            # the multi-pod mesh's three axes, one device each: its step
-            # mesh flattens ("pod", "data") into one dim
-            pod_mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=(
-                "pod", "data", "model"))
-            check(tuple(step_mesh(pod_mesh).mesh_dim_names) == (
-                "pod+data", "model"), "pod: the (1, 1, 1) step mesh")
+            # the multi-pod mesh's three axes, one device each, laid out
+            # with ("pod", "data") as one dim
+            pod_mesh = make_pod_mesh((1, 1, 1), ("pod", "data", "model"),
+                                     "cuda")
+            check(tuple(pod_mesh.mesh_dim_names) == ("pod+data", "model"),
+                  "pod: the (1, 1, 1) mesh's dims")
             t1 = time.perf_counter()
             p3_losses, p3_secs, pod3, live3, _, _ = sharded_steps(
                 pod_mesh, profile=False)
@@ -3102,7 +3101,7 @@ def pod_phase(torch, np) -> dict:
               f"{differ[:3]}")
         differ3 = [k for k in plain if not torch.equal(pod3[k], plain[k])]
         print(f"pod (a): the same over a (1, 1, 1) (pod, data, model) mesh "
-              f"(step mesh (pod+data, model)): losses {p3_losses}, seconds "
+              f"(laid out (pod+data, model)): losses {p3_losses}, seconds "
               f"a step {[round(s, 4) for s in p3_secs]}, {len(plain)} "
               f"parameters equal to the plain ones bit for bit: "
               f"{not differ3} ({p3_run:.1f} s with the state's layout)")

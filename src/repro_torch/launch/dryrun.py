@@ -1,7 +1,8 @@
 """Multi-pod dry run: trace every (arch x shape x mesh) cell's step.
 
 For each cell this script:
-  1. builds the production mesh (16x16 single-pod / 2x16x16 multi-pod)
+  1. builds the production mesh (16x16 single-pod / 2x16x16 multi-pod,
+     laid out as 32x16 with pod and data one dim: ``launch/mesh.py``)
      over a fake process group of 512 ranks in this one process (the
      counterpart of ``--xla_force_host_platform_device_count``; the
      single-pod mesh is its leading 256 ranks),
@@ -52,7 +53,7 @@ from ..models.layers import dtype_of
 from ..train.optimizer import AdamWConfig
 from .flops import model_flops_6nd, step_flops
 from .hlo import LocalTrace, collective_stats
-from .mesh import make_production_mesh, step_mesh, tp_axis
+from .mesh import make_production_mesh, tp_axis
 from .sharding import (_tree_map, batch_placements, cache_placements,
                        make_shardings, shard_state)
 
@@ -111,9 +112,7 @@ def local_bytes(tree) -> int:
 
 
 def _distribute(tree, placements, mesh):
-    """``tree`` laid out by ``placements`` on ``mesh``'s step mesh."""
     from torch.distributed.tensor import distribute_tensor
-    mesh = step_mesh(mesh)
 
     def go(t, pl):
         if isinstance(t, dict):

@@ -17,19 +17,17 @@ device, over a process group the caller has initialized (NCCL on cards,
 gloo on the CPU, the fake backend for a dry run; nothing here starts
 one).  Single pod: ``(data=16, model=16)``, 256 ranks; multi-pod: ``(pod=2,
 data=16, model=16)``, 512 ranks, the ``pod`` axis carrying data
-parallelism and FSDP.  A step's DTensors live on :func:`step_mesh`, where
-the data-parallel axes ``('pod', 'data')`` are one dim (``"pod+data"``,
-ranks in the same major-to-minor order as the reference's
-``PartitionSpec(('pod', 'data'), ...)``): every rule names the two
-together, so each sharding over them is one collective over one group
-rather than two in turn, and DTensor's search for an op's placements
-runs over two mesh dims, not three (over three it took over a minute
-for one matmul of a backward).
+parallelism and FSDP.  :func:`make_pod_mesh` lays a mesh with ``pod``
+and ``data`` out with the two as one dim, ``"pod+data"`` (ranks in the
+same major-to-minor order as the reference's ``PartitionSpec(('pod',
+'data'), ...)``): every rule names the two together, so each sharding
+over them is one collective over one group rather than two in turn, and
+DTensor's search for an op's placements runs over two mesh dims, not
+three (over three it took over a minute for one matmul of a backward).
 A DTensor placement shards over its dims (``launch/sharding.py``).
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 import os
 from typing import Optional, Sequence, Tuple
@@ -37,8 +35,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 __all__ = ["SCAN_AXIS", "make_scan_mesh", "make_stage_mesh",
-           "make_production_mesh", "make_host_mesh", "step_mesh", "dim_axes",
-           "dp_axes", "fsdp_axes", "tp_axis"]
+           "make_pod_mesh", "make_production_mesh", "make_host_mesh",
+           "pod_dims", "dim_axes", "dp_axes", "fsdp_axes", "tp_axis"]
 
 # the name of the mesh's one axis: the shard axis of the pinned stacks
 SCAN_AXIS = "shard"
@@ -92,12 +90,31 @@ def make_stage_mesh(n_stages: int, *,
     return tuple(devices[s * D // n_stages] for s in range(n_stages))
 
 
-def _pod_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
-              device_type: str):
-    """A ``DeviceMesh`` of ``shape`` over ranks ``0 .. n-1`` of the
-    initialized process group: the whole group, or its leading sub-grid
-    when it has more ranks (the single-pod mesh inside a 512-rank dry
-    run).  Fewer ranks than the mesh needs is an error."""
+# a mesh dim's name joins the pod axes it covers
+FLAT = "+"
+
+
+def pod_dims(shape: Tuple[int, ...], axes: Tuple[str, ...]
+             ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The dims a pod mesh of ``shape`` over ``axes`` is laid out by:
+    ``'pod'`` and ``'data'`` (adjacent, in that order) as one dim
+    ``"pod+data"`` of their product's size, its index ``pod * data_size +
+    data``; every other axis its own dim."""
+    if "pod" not in axes:
+        return tuple(shape), tuple(axes)
+    i = axes.index("pod")
+    assert axes[i + 1:i + 2] == ("data",), f"'pod' without 'data' in {axes}"
+    return (shape[:i] + (shape[i] * shape[i + 1],) + shape[i + 2:],
+            axes[:i] + (FLAT.join(axes[i:i + 2]),) + axes[i + 2:])
+
+
+def make_pod_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                  device_type: str):
+    """A ``DeviceMesh`` of ``shape`` over the pod ``axes``, laid out by
+    :func:`pod_dims`, over ranks ``0 .. n-1`` of the initialized process
+    group: the whole group, or its leading sub-grid when it has more ranks
+    (the single-pod mesh inside a 512-rank dry run).  Fewer ranks than the
+    mesh needs is an error."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     n = math.prod(shape)
@@ -110,19 +127,21 @@ def _pod_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
         raise RuntimeError(
             f"need {n} ranks for mesh {shape}, have {world} — initialize "
             f"the process group with world_size={n}")
+    dims, names = pod_dims(tuple(shape), tuple(axes))
     if world == n:
-        return init_device_mesh(device_type, shape, mesh_dim_names=axes)
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
-                      mesh_dim_names=axes)
+        return init_device_mesh(device_type, dims, mesh_dim_names=names)
+    return DeviceMesh(device_type, torch.arange(n).reshape(dims),
+                      mesh_dim_names=names)
 
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """``(data=16, model=16)``, or ``(pod=2, data=16, model=16)`` with
-    ``multi_pod``, over the initialized process group."""
+    ``multi_pod`` (a ``(32, 16)`` mesh, ``("pod+data", "model")``), over
+    the initialized process group."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _pod_mesh(shape, axes, device_type)
+    return make_pod_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(*, device_type: Optional[str] = None):
@@ -131,46 +150,21 @@ def make_host_mesh(*, device_type: Optional[str] = None):
     unless ``device_type="cpu"`` is asked for (without CUDA and no such
     request this raises)."""
     from ..core.tree import _device_for
-    return _pod_mesh((1, 1), ("data", "model"),
-                     _device_for(None, device_type).type)
-
-
-# a step mesh's dim name joins the pod axes it covers
-FLAT = "+"
+    return make_pod_mesh((1, 1), ("data", "model"),
+                         _device_for(None, device_type).type)
 
 
 def dim_axes(mesh) -> Tuple[Tuple[str, ...], ...]:
     """The pod axes each dim of ``mesh`` covers, in mesh order: one a dim,
-    ``('pod', 'data')`` for a step mesh's flattened dim."""
-    return tuple(tuple(n.split(FLAT)) for n in mesh.mesh_dim_names)
-
-
-def step_mesh(mesh):
-    """The mesh a step's DTensors live on: ``mesh`` with ``'pod'`` and
-    ``'data'`` (adjacent, in that order) as one dim ``"pod+data"`` of
-    their product's size, its index ``pod * data_size + data``; any other
-    mesh (and a step mesh) as it is.  A ``DeviceMesh`` gets a new
-    ``DeviceMesh`` over the same ranks, made once and kept on the mesh
-    (one set of process groups a pod mesh); an ``AbstractMesh`` a new
-    one of the same type."""
+    ``('pod', 'data')`` for the flattened dim.  A mesh with ``'pod'`` and
+    ``'data'`` as dims of their own is refused: :func:`make_pod_mesh`
+    lays them out as one."""
     names = tuple(mesh.mesh_dim_names)
-    if "pod" not in names or "data" not in names:
-        return mesh
-    i = names.index("pod")
-    assert names[i + 1] == "data", f"'pod' and 'data' apart in {names}"
-    shape = tuple(mesh.shape)
-    flat_shape = shape[:i] + (shape[i] * shape[i + 1],) + shape[i + 2:]
-    flat_names = names[:i] + (FLAT.join(names[i:i + 2]),) + names[i + 2:]
-    if not hasattr(mesh, "device_type"):            # an AbstractMesh
-        return dataclasses.replace(mesh, shape=flat_shape,
-                                   mesh_dim_names=flat_names)
-    flat = getattr(mesh, "_step_mesh", None)
-    if flat is None:
-        from torch.distributed.device_mesh import DeviceMesh
-        flat = DeviceMesh(mesh.device_type, mesh.mesh.reshape(flat_shape),
-                          mesh_dim_names=flat_names)
-        mesh._step_mesh = flat
-    return flat
+    if {"pod", "data"} <= set(names):
+        raise ValueError(f"'pod' and 'data' are separate dims of {names}: "
+                         f"make the mesh with make_pod_mesh, which lays "
+                         f"them out as one")
+    return tuple(tuple(n.split(FLAT)) for n in names)
 
 
 def dp_axes(mesh) -> tuple:

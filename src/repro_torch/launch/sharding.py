@@ -27,14 +27,11 @@ its dim is dropped.
 A mesh here is anything with ``mesh_dim_names`` and ``shape``: a
 ``DeviceMesh``, or an :class:`AbstractMesh` when only the rules are wanted
 (the counterpart of the reference's ``AbstractMesh``; no process
-group).  Every placement here is over :func:`launch.mesh.step_mesh` of
-the mesh given, where the multi-pod mesh's ``('pod', 'data')`` is one dim:
-a spec's ``('pod', 'data')`` is one ``Shard`` on it, the same rows on the
-same ranks as the reference's two axes; :func:`make_shardings` and
-:func:`shard_state` lay DTensors out on it, and a caller that distributes
-a batch or a cache by these placements does so on ``step_mesh(mesh)``.
-The models take :data:`UNSHARDED`, a ``Shardings`` without a mesh, by
-default: each of its methods is then the plain call.
+group).  A multi-pod mesh is laid out by :func:`launch.mesh.pod_dims`,
+``('pod', 'data')`` one dim: a spec's ``('pod', 'data')`` is one
+``Shard`` on it, the same rows on the same ranks as the reference's two
+axes.  The models take :data:`UNSHARDED`, a ``Shardings`` without a
+mesh, by default: each of its methods is then the plain call.
 """
 from __future__ import annotations
 
@@ -48,7 +45,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
 
-from .mesh import dim_axes, fsdp_axes, step_mesh, tp_axis
+from .mesh import dim_axes, fsdp_axes, tp_axis
 
 if TYPE_CHECKING:     # the models import this module
     from ..models.config import ModelConfig
@@ -92,10 +89,9 @@ def _fit(shape, spec, mesh) -> tuple:
 
 
 def spec_to_placements(spec, mesh) -> tuple:
-    """A ``PartitionSpec``-like tuple as one placement a dim of
-    ``step_mesh(mesh)``.  An axis of one device replicates: its shard is
-    the whole dim, and DTensor refuses to view a dim it holds sharded."""
-    mesh = step_mesh(mesh)
+    """A ``PartitionSpec``-like tuple as one placement a mesh dim.  An
+    axis of one device replicates: its shard is the whole dim, and DTensor
+    refuses to view a dim it holds sharded."""
     out = [Replicate()] * len(mesh.mesh_dim_names)
     for dim, ax in enumerate(spec):
         for i in _dims(mesh, ax):
@@ -109,9 +105,7 @@ def spec_to_placements(spec, mesh) -> tuple:
 @dataclasses.dataclass
 class Shardings:
     """Activation-constraint helper threaded through the model code.  With
-    ``mesh`` None (:data:`UNSHARDED`) every method is the plain call;
-    otherwise ``mesh`` is a step mesh (:func:`make_shardings` makes it
-    one)."""
+    ``mesh`` None (:data:`UNSHARDED`) every method is the plain call."""
     mesh: Any
     rules: Dict[str, Any]
 
@@ -264,7 +258,6 @@ def make_shardings(mesh, *, sp: bool = True, batch_shardable: bool = True,
     """
     if mesh is None:
         return None
-    mesh = step_mesh(mesh)
     fsdp, tp = _axes(mesh)
     if mode == "dp":
         all_axes = tuple(fsdp) + (tp,)
@@ -480,9 +473,7 @@ def shard_state(state_or_model, mesh, policy: str = "tp"):
 
     A model has its parameters replaced in place and is returned; a state
     ``{"params", "opt": {"m", "v", "step"}}`` is returned as a new dict of
-    the same layout (a step binds its parameters into the model).  The
-    DTensors live on ``step_mesh(mesh)``."""
-    mesh = step_mesh(mesh)
+    the same layout (a step binds its parameters into the model)."""
     if isinstance(state_or_model, nn.Module):
         model = state_or_model
         for name, pl in param_placements(model, mesh, policy).items():

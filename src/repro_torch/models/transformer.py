@@ -214,17 +214,19 @@ class Model(nn.Module):
     def _sharded_logits(self, x, sh: Shardings):
         """The logits, vocab-sharded under ``sh`` (the reference constrains
         them before the vocab mask; the mask is elementwise, so after it
-        gives the same values).  When the unembedding takes a gradient the
-        product takes its vocab shard gathered over the FSDP axes, so it
-        runs on each rank's rows where they lie.  Left to DTensor, that
-        product moves the rows instead when a rank holds fewer bytes of
-        them than of the weight, and its backward then gathers the whole
-        batch's logits gradient (4.6 GiB twice in qwen1.5-110b's train_4k
-        cell on the multi-pod mesh).  Without a backward (prefill, decode)
-        DTensor chooses."""
+        gives the same values).  When a gradient is taken (grad mode on
+        and the unembedding trainable) the product takes the weight's vocab
+        shard gathered over the FSDP axes, so it runs on each rank's rows
+        where they lie.  Left to DTensor, that product moves the rows
+        instead when a rank holds fewer bytes of them than of the weight,
+        and its backward then gathers the whole batch's logits gradient
+        (4.6 GiB twice in qwen1.5-110b's train_4k cell on the multi-pod
+        mesh).  Without a gradient (prefill, decode, a trained model
+        under ``no_grad``) DTensor chooses."""
         h = self._gathered(x, sh)
         w = sh.act(self.unembed, None, "vocab") \
-            if self.unembed.requires_grad else self.unembed
+            if torch.is_grad_enabled() and self.unembed.requires_grad \
+            else self.unembed
         logits = self._logits(h) if w is self.unembed else \
             self._logits(h, w)
         return sh.act(logits, "batch", "seq_unsharded", "vocab")
@@ -273,9 +275,14 @@ class Model(nn.Module):
             if kind == "moe":
                 y2, moe_aux = MOE.moe_block(h2, layer.moe, cfg, sh=sh)
                 aux = (moe_aux["load_balance"], moe_aux["router_z"])
+                # the combine's partial sum over the experts' mesh dim is
+                # reduce-scattered into the residual's sequence shards:
+                # half the bytes of reducing it whole, and its backward
+                # gathers the cotangent as the whole one's would
+                y2 = sh.act(y2, "batch", "seq", "embed")
             else:
-                y2 = gated_mlp(h2, layer.mlp, sh=sh)
-            x = sh.act(x + self._gathered(y2, sh), "batch", "seq", "embed")
+                y2 = self._gathered(gated_mlp(h2, layer.mlp, sh=sh), sh)
+            x = sh.act(x + y2, "batch", "seq", "embed")
         return x, new_state, aux
 
     @staticmethod

@@ -13,8 +13,8 @@ workers across files).
   equal the unsharded step's at rtol = atol = 1e-5; then each one's
   sharded prefill and one decode token equal the unsharded ones.
 * The fake backend, in one process: the pod meshes (the leading sub-grid
-  of a larger group, an error for a smaller one) and the multi-pod
-  mesh's step mesh (``('pod', 'data')`` as one dim over the same ranks);
+  of a larger group, an error for a smaller one; the multi-pod mesh with
+  ``('pod', 'data')`` as one dim over the same ranks);
   the dry run's cell at SMOKE width on a fake ``(2, 2)`` world, under the
   ``tp`` and ``dp`` policies: argument bytes equal the summed local shard
   bytes worked out from the placements, the peak covers them,
@@ -96,12 +96,8 @@ out["meshes"] = [[list(m.shape), list(m.mesh_dim_names),
                   m.mesh.flatten().tolist()[:3], m.device_type,
                   list(M.dp_axes(m)), list(M.fsdp_axes(m)), M.tp_axis(m)]
                  for m in (single, multi, host)]
-step = M.step_mesh(multi)
-out["step_mesh"] = [list(step.shape), list(step.mesh_dim_names),
-                    M.step_mesh(multi) is step, M.step_mesh(step) is step,
-                    M.step_mesh(single) is single, list(M.dp_axes(step)),
-                    dist.get_process_group_ranks(step.get_group(0)),
-                    dist.get_process_group_ranks(step.get_group(1))]
+out["multi_groups"] = [dist.get_process_group_ranks(multi.get_group(i))
+                       for i in range(2)]
 D.init_fake_world(256)
 try:
     M.make_production_mesh(multi_pod=True)
@@ -171,8 +167,7 @@ cfg = dataclasses.replace(get("llama3.2-1b", smoke=True),
                           param_dtype="bfloat16")
 data = TokenPipeline(cfg.vocab_unpadded, 4, 16, device="cpu")
 # (and over the multi-pod mesh's three axes, one device each)
-pod3 = init_device_mesh("cpu", (1, 1, 1),
-                        mesh_dim_names=("pod", "data", "model"))
+pod3 = M.make_pod_mesh((1, 1, 1), ("pod", "data", "model"), "cpu")
 runs = []
 for mesh_ in (host, pod3, None):
     model = Model(cfg, device="cpu", seed=0)
@@ -186,7 +181,7 @@ for mesh_ in (host, pod3, None):
         b = data(s)
         if mesh_ is not None:
             pl = batch_placements(mesh_, b, 4)
-            b = {k: distribute_tensor(v, M.step_mesh(mesh_), pl[k])
+            b = {k: distribute_tensor(v, mesh_, pl[k])
                  for k, v in b.items()}
         state, m = step(state, b)
         losses.append(float(m["loss"]))
@@ -224,8 +219,8 @@ def test_pod_meshes(fake_run):
     single, multi, host = out["meshes"]
     assert single == [[16, 16], ["data", "model"], [0, 1, 2], "cuda",
                       ["data"], ["data"], "model"]
-    assert multi == [[2, 16, 16], ["pod", "data", "model"], [0, 1, 2],
-                     "cuda", ["pod", "data"], ["pod", "data"], "model"]
+    assert multi == [[32, 16], ["pod+data", "model"], [0, 1, 2], "cuda",
+                     ["pod", "data"], ["pod", "data"], "model"]
     assert host == [[1, 1], ["data", "model"], [0], "cpu", ["data"],
                     ["data"], "model"]
     assert "need 512 ranks" in out["too_few"]
@@ -233,13 +228,9 @@ def test_pod_meshes(fake_run):
         assert "no CUDA device" in out["host_no_card"]
 
 
-def test_step_mesh_flattens_pod_and_data(fake_run):
+def test_multi_pod_mesh_flattens_pod_and_data(fake_run):
     out, _ = fake_run
-    shape, names, cached, idem, single, dp, dp_ranks, tp_ranks = \
-        out["step_mesh"]
-    assert shape == [32, 16] and names == ["pod+data", "model"]
-    assert cached and idem and single
-    assert dp == ["pod", "data"]
+    dp_ranks, tp_ranks = out["multi_groups"]
     # rank 0's data-parallel group: every (pod, data) pair at model 0, pod
     # major, as the reference's ('pod', 'data'); its model group as before
     assert dp_ranks == list(range(0, 512, 16))
@@ -260,7 +251,7 @@ def test_host_mesh_step_is_the_plain_step_bit_for_bit(fake_run):
 
 def test_pod_mesh_step_is_the_plain_step_bit_for_bit(fake_run):
     # (1, 1, 1) over ("pod", "data", "model"): chip_smoke.py phase 21's
-    # second mesh, through its ("pod+data", "model") step mesh
+    # second mesh, laid out as ("pod+data", "model")
     out, _ = fake_run
     assert out["pod_losses"] == out["host_losses"][1]
     assert out["pod_params_equal"]
@@ -337,26 +328,28 @@ def test_dryrun_skips_long_500k_for_full_attention(fake_run):
 
 _MEMORY = r"""
 import dataclasses, json
-from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_pod_mesh
 get, T, out = D.get, 16, {}
+traces, stats = [], D.collective_stats
+D.collective_stats = lambda tr, *a: (traces.append(tr), stats(tr, *a))[1]
 
 
-def cell(arch, shape, B, layers=None):
+def cell(arch, shape, B, layers=None, step="train"):
     names = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                         "model")
     n = 1
     for s in shape:
         n *= s
     D.init_fake_world(n)
-    mesh = init_device_mesh("cuda", shape, mesh_dim_names=names)
+    mesh = make_pod_mesh(shape, names, "cuda")
     cfg = get(arch, smoke=True)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     D.get = lambda a: cfg
     m = D.run_cell(arch, "smoke", "x", save=False, verbose=False,
-                   spec=ShapeSpec("smoke", T, B, "train"),
+                   spec=ShapeSpec("smoke", T, B, step),
                    mesh=mesh)["memory"]
     return m["argument_size_in_bytes"], m["temp_size_in_bytes"]
 
@@ -366,6 +359,9 @@ for arch in ("llama3.2-1b", "granite-moe-1b-a400m", "mamba2-2.7b"):
 out["granite-moe-1b-a400m"]["pods"] = [
     cell("granite-moe-1b-a400m", (2, 2), 8, 1),
     cell("granite-moe-1b-a400m", (2, 2, 2), 16, 1)]
+# the collectives of granite-moe's prefill on (2, 2): op and result shape
+cell("granite-moe-1b-a400m", (2, 2), 8, step="prefill")
+out["moe_prefill"] = [(r[0], r[4][0]) for r in traces[-1].records]
 print("RESULT " + json.dumps(out))
 """
 
@@ -401,6 +397,19 @@ def test_peak_holds_when_pods_add_rows(memory_run):
     # batch)
     (_, single), (_, pods) = memory_run["granite-moe-1b-a400m"]["pods"]
     assert pods <= single
+
+
+def test_moe_combine_is_reduce_scattered(memory_run):
+    # granite-moe's SMOKE prefill on (2, 2), batch 8 x 16, two attention +
+    # MoE blocks: each block's two outputs are [4, 16, 64] partial sums
+    # over 'model' on each rank.  The attention's is all-reduced whole
+    # (then sliced to the residual's sequence shards); the MoE combine's
+    # is reduce-scattered straight into them, [4, 8, 64], half the bytes
+    recs = memory_run["moe_prefill"]
+    assert [s for op, s in recs if op == "all-reduce"
+            and s == [4, 16, 64]] == [[4, 16, 64]] * 2
+    assert len([s for op, s in recs if op == "reduce-scatter"
+                and s == [4, 8, 64]]) >= 2
 
 
 def test_ssd_scan_saves_no_outer_product():

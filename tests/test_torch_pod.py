@@ -9,9 +9,9 @@ sharded train step (batch 8 x 16, 2 microbatches, remat; ``shard_state``
 + ``sh``; the loss vocab-parallel) whose loss, grad norm and updated
 parameters equal the unsharded step's at rtol = atol = 1e-5; then each
 one's sharded prefill and one decode token equal the unsharded ones.  The
-step runs on ``step_mesh``'s ``("pod+data", "model")`` dims: on three
-mesh dims DTensor's search for a matmul's placements in the backward
-took over a minute an op.
+mesh is ``make_pod_mesh``'s, laid out as ``("pod+data", "model")`` dims:
+on three mesh dims DTensor's search for a matmul's placements in the
+backward took over a minute an op.
 
 Each rank arms ``faulthandler.dump_traceback_later``, so a rank that
 stalls exits with its stack on its stderr, which the failure shows; the
@@ -77,25 +77,23 @@ import torch
 import torch.distributed as dist
 dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                         world_size=world)
-from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.configs import get
-from repro_torch.launch.mesh import step_mesh
+from repro_torch.launch.mesh import make_pod_mesh
 from repro_torch.launch.sharding import (batch_placements, make_shardings,
                                          shard_state)
 from repro_torch.models import (Model, init_train_state, make_prefill_step,
                                 make_serve_step, make_train_step, pad_cache)
 from test_torch_pod import batch_for, decode_pos
-mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
-smesh = step_mesh(mesh)
+mesh = make_pod_mesh(shape, names, "cpu")
 res = {}
 for arch in archs:
     cfg = get(arch, smoke=True)
     model = Model(cfg, device="cpu", seed=0)
     batch = batch_for(cfg, B)
     pl = batch_placements(mesh, batch, B)
-    sharded = {k: distribute_tensor(v, smesh, pl[k])
+    sharded = {k: distribute_tensor(v, mesh, pl[k])
                for k, v in batch.items()}
     state = shard_state(init_train_state(model), mesh)
     step = make_train_step(model, sh=make_shardings(mesh), microbatches=2,
@@ -109,7 +107,7 @@ for arch in archs:
         {k: v for k, v in sharded.items() if k != "labels"})
     with implicit_replication():
         cache = pad_cache(model, cache, 2)
-    tok = distribute_tensor(batch["tokens"][:, :1], smesh, pl["tokens"])
+    tok = distribute_tensor(batch["tokens"][:, :1], mesh, pl["tokens"])
     dlog, _ = make_serve_step(model, sh=make_shardings(mesh, sp=False))(
         cache, tok, decode_pos(cfg))
     r["prefill"] = logits.detach().full_tensor()

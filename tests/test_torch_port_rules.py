@@ -2,7 +2,9 @@
 
 * ``repro_torch`` imports with ``jax`` and the reference package ``repro``
   blocked, and no source file names them (nor ``chip_smoke.py`` and the
-  compare tools, which run on the card's machine);
+  tools, which run on the card's machine; the one CPU-only tool,
+  ``tools/compare_dryrun.py``, names them only in its reference child's
+  command);
 * a numpy input defaults to the CUDA device, so without one an entry point
   raises instead of running on the CPU;
 * a tensor on a device with no kernel raises; there is no fallback to a
@@ -10,6 +12,7 @@
 """
 from __future__ import annotations
 
+import ast
 import os
 import re
 import subprocess
@@ -182,14 +185,41 @@ def test_model_and_serve_default_to_cuda():
     assert out["report"]["decode.steps_total"] == 2
 
 
+# tools that run only on the CPU beside the reference, each with the one
+# module-level string that is the reference's child command (``python -c``)
+CPU_ONLY_TOOLS = {"compare_dryrun.py": "REFERENCE_CELL"}
+_NAMES_REFERENCE = re.compile(r"import jax|from jax|from repro\.|"
+                              r"import repro\b|from repro import")
+
+
 def test_chip_scripts_name_neither_jax_nor_the_reference():
-    """chip_smoke.py and the compare tools run on the card's machine,
-    which has no jax."""
+    """chip_smoke.py and the tools run on the card's machine, which has no
+    jax.  A CPU-only tool imports neither either; only its reference
+    child's command, a string run in a process of its own, names them."""
     root = PKG.parents[1]
     files = [root / "chip_smoke.py", *sorted((root / "tools").glob("*.py"))]
     assert len(files) >= 5
+    assert {f.name for f in files} >= set(CPU_ONLY_TOOLS)
     for f in files:
-        assert not BAD_IMPORT.search(f.read_text()), f
+        text = f.read_text()
+        assert not BAD_IMPORT.search(text), f
+        if f.name not in CPU_ONLY_TOOLS:
+            continue
+        tree = ast.parse(text)
+        imported = {a.name for n in ast.walk(tree)
+                    if isinstance(n, ast.Import) for a in n.names} | {
+            n.module or "" for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom)}
+        assert not {m.split(".")[0] for m in imported} & {"jax", "repro"}, f
+        child = [n.value for n in tree.body if isinstance(n, ast.Assign)
+                 and [t.id for t in n.targets if isinstance(t, ast.Name)]
+                 == [CPU_ONLY_TOOLS[f.name]]]
+        assert len(child) == 1, f
+        assert _NAMES_REFERENCE.search(ast.literal_eval(child[0])), f
+        others = [c.value for c in ast.walk(tree)
+                  if isinstance(c, ast.Constant) and isinstance(c.value, str)
+                  and c is not child[0]]
+        assert not [o for o in others if _NAMES_REFERENCE.search(o)], f
 
 
 def test_numpy_build_defaults_to_cuda():

@@ -10,8 +10,9 @@
   its leading (layer) entry removed.  Three readings of a spec hold on
   both sides: several axes on one dim shard it in mesh order, an axis of
   one device replicates (sharding over one device is the whole dim), and
-  placements are over the step mesh, where ``('pod', 'data')`` is one dim
-  of their product's size (the same rows on the same ranks).
+  the port's multi-pod mesh (``launch.mesh.pod_dims``) has ``('pod',
+  'data')`` as one dim of their product's size (the same rows on the same
+  ranks).
 * ``configs/shapes.py``: ``SHAPES``, ``applicable`` and ``skip_reason``
   (32 runnable cells); ``input_specs`` and ``Model.decode_cache_specs``
   shapes and dtypes, per layer, for every arch x shape.  The one named
@@ -57,11 +58,11 @@ POLICIES = ("tp", "dp")
 
 def _meshes(key):
     shape, names = MESHES[key]
-    return RefMesh(shape, names), PS.AbstractMesh(shape, names)
+    return RefMesh(shape, names), PS.AbstractMesh(*PM.pod_dims(shape, names))
 
 
-def _step_dims(shape, names):
-    """The step mesh's dims as (pod axes, size): ``pod`` and ``data``
+def _mesh_dims(shape, names):
+    """The port's mesh dims as (pod axes, size): ``pod`` and ``data``
     merged into one dim, every other axis its own."""
     dims = []
     for a, n in zip(names, shape):
@@ -73,12 +74,12 @@ def _step_dims(shape, names):
 
 
 def _placements(spec, shape, names):
-    """A reference ``PartitionSpec`` as DTensor placements on the step
-    mesh, independently of the port: step dim i is Shard(d) where the
+    """A reference ``PartitionSpec`` as DTensor placements on the port's
+    mesh, independently of the port: its dim i is Shard(d) where the
     spec puts its axes on dim d (a dim of one device replicates).  The
     reference never splits ``('pod', 'data')``: a spec holds both or
     neither."""
-    dims = _step_dims(shape, names)
+    dims = _mesh_dims(shape, names)
     out = [Replicate()] * len(dims)
     for d, ax in enumerate(spec):
         axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
@@ -257,22 +258,25 @@ def _check_cache(ref, layers, cfg, shape, names, strip):
 
 
 def test_spec_order_and_act_on_plain_tensors():
-    mesh = PS.AbstractMesh((2, 2, 2), ("pod", "data", "model"))
-    # ('pod', 'data') is one dim of the step mesh: one Shard on it
-    flat = PS.AbstractMesh((4, 2), ("pod+data", "model"))
-    assert PM.step_mesh(mesh) == flat and PM.step_mesh(flat) == flat
-    for m in (mesh, flat):
-        assert PS.spec_to_placements((("pod", "data"), "model"), m) == (
-            Shard(0), Shard(1))
-        assert PS.spec_to_placements((None, ("pod", "data", "model")),
-                                     m) == (Shard(1), Shard(1))
-        with pytest.raises(AssertionError):
-            PS.spec_to_placements((("data", "pod"),), m)
-    # one of the two alone is not a dim of the step mesh
+    # ('pod', 'data') is one dim of the multi-pod mesh: one Shard on it
+    mesh = PS.AbstractMesh(*PM.pod_dims((2, 2, 2), ("pod", "data", "model")))
+    assert mesh == PS.AbstractMesh((4, 2), ("pod+data", "model"))
+    assert PS.spec_to_placements((("pod", "data"), "model"), mesh) == (
+        Shard(0), Shard(1))
+    assert PS.spec_to_placements((None, ("pod", "data", "model")),
+                                 mesh) == (Shard(1), Shard(1))
+    with pytest.raises(AssertionError):
+        PS.spec_to_placements((("data", "pod"),), mesh)
+    # one of the two alone is not a dim of the mesh
     with pytest.raises(AssertionError):
         PS.spec_to_placements(("data",), mesh)
+    # nor are the two as dims of their own
+    with pytest.raises(ValueError, match="make_pod_mesh"):
+        PS.spec_to_placements((("pod", "data"),), PS.AbstractMesh(
+            (2, 2, 2), ("pod", "data", "model")))
     single = PS.AbstractMesh((2, 2), ("data", "model"))
-    assert PM.step_mesh(single) is single
+    assert PM.pod_dims((2, 2), ("data", "model")) == ((2, 2),
+                                                      ("data", "model"))
     assert PS.spec_to_placements((("data", "model"),), single) == (
         Shard(0), Shard(0))
     sh = PS.make_shardings(mesh)

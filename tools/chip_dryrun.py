@@ -15,8 +15,8 @@ the repository root::
 
     python3 tools/chip_dryrun.py
 
-``--sweep`` runs no phase: it traces every arch x shape x pod-mesh cell
-of ``--shapes`` (default ``train_4k prefill_32k``), a ``python -m
+``--sweep`` runs no phase: it traces every arch's ``train_4k`` and
+``prefill_32k`` cells on both pod meshes, a ``python -m
 repro_torch.launch.dryrun`` process a cell, ``--jobs`` at once, the
 biggest archs first, from the tree ``--src`` (default this checkout's;
 another tree's ``src`` unpacked under ``build/`` traces that tree), and
@@ -43,6 +43,7 @@ SWEEP_ARCHS = ("llama3-405b", "llama4-maverick-400b-a17b", "qwen1.5-110b",
                "mamba2-2.7b", "granite-moe-1b-a400m", "recurrentgemma-2b",
                "seamless-m4t-medium", "phi-3-vision-4.2b", "granite-3-2b",
                "llama3.2-1b")
+SWEEP_SHAPES = ("train_4k", "prefill_32k")
 CELL_S = 1800                   # one cell's time limit
 
 
@@ -97,8 +98,9 @@ def _brief(rec: dict) -> str:
             f"trace {rec['timings']['trace_s']:.1f} s")
 
 
-def sweep(archs, shapes, src: Path, jobs: int, out) -> int:
+def sweep(src: Path, jobs: int, out) -> int:
     import torch
+    archs, shapes = SWEEP_ARCHS, SWEEP_SHAPES
     print(f"dry-run sweep of {' '.join(shapes)} from {src}, torch "
           f"{torch.__version__}, {jobs} processes")
     cells = [(a, s, m) for a in archs for s in shapes
@@ -132,17 +134,13 @@ def sweep(archs, shapes, src: Path, jobs: int, out) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--shapes", nargs="+",
-                    default=["train_4k", "prefill_32k"])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--archs", nargs="+", default=list(SWEEP_ARCHS))
     ap.add_argument("--jobs", type=int, default=8)
     ap.add_argument("--out", default=None,
                     help="also write every cell's record here (JSON)")
     args = ap.parse_args(argv)
     if args.sweep:
-        return sweep(args.archs, args.shapes, Path(args.src).resolve(),
-                     args.jobs, args.out)
+        return sweep(Path(args.src).resolve(), args.jobs, args.out)
     return phase()
 
 

@@ -16,10 +16,12 @@ line printed last sets the port's peak against the reference's argument
 ``--live N`` also lists, for the port, the N call sites whose op outputs
 are live at the peak (by the autograd node running, the op and the
 innermost frames of ``repro_torch``), bytes summed over each site's
-storages: what holds the peak.  ``--src DIR`` traces another tree's port
-(a checkout unpacked under ``build/``); ``--mesh multi`` the port's
-multi-pod cell (512 ranks; the reference's multi-pod cells do not
-compile on every jax, so the reference stays single-pod).
+storages: what holds the peak.  ``--collectives N`` lists the port's N
+largest sums of the roofline's collective term (ms, as the dry run
+prices each collective) by op, group size and call site (the innermost
+frames of ``repro_torch``): what moves.  ``--src DIR`` traces another
+tree's port (a checkout unpacked under ``build/``).  The cells are single-pod: the
+reference's multi-pod cells do not compile on every jax.
 
 Full-width cells of the 100B+ archs take minutes here (the reference's
 compile, the port's trace), so this is not part of the tests::
@@ -27,6 +29,8 @@ compile, the port's trace), so this is not part of the tests::
     python3 tools/compare_dryrun.py --arch qwen1.5-110b --shape train_4k
     python3 tools/compare_dryrun.py --arch llama3-405b --shape train_4k \
         --live 20
+    python3 tools/compare_dryrun.py --arch granite-moe-1b-a400m \
+        --shape prefill_32k --collectives 8 --src build/parent/src
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 GIB = 2 ** 30
+CELL_S = 3600                   # each half's time limit
 
 
 # the reference's half, run by ``python -c`` in a process of its own: it
@@ -55,6 +60,37 @@ REFERENCE_CELL = (
     "'version': 'jax ' + jax.__version__}))")
 
 
+def _site(depth: int) -> str:
+    """The innermost three ``repro_torch`` frames (the dry run's own
+    excepted) above frame ``depth`` of the caller."""
+    f, frames = sys._getframe(depth + 1), []
+    while f is not None and len(frames) < 3:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and not name.endswith(
+                ("launch/hlo.py", "launch/dryrun.py")):
+            frames.append(f"{name.split('repro_torch/')[-1]}:"
+                          f"{f.f_lineno}:{f.f_code.co_name}")
+        f = f.f_back
+    return " < ".join(frames)
+
+
+def _site_trace(base):
+    """A subclass of the dry run's ``LocalTrace`` that keeps each
+    collective record's call site beside it (``self.sites``)."""
+    class Sites(base):
+        def __init__(self):
+            super().__init__()
+            self.sites = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n = len(self.records)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            self.sites += [_site(1)] * (len(self.records) - n)
+            return out
+
+    return Sites
+
+
 def _live_trace(base):
     """A subclass of the dry run's ``LocalTrace`` that also keeps every
     local op output's storage until it is freed, and a copy of the live
@@ -65,17 +101,9 @@ def _live_trace(base):
     from torch.distributed.tensor import DTensor
 
     def site(func):
-        f, frames = sys._getframe(2), []
-        while f is not None and len(frames) < 3:
-            name = f.f_code.co_filename
-            if "repro_torch" in name and not name.endswith(
-                    ("launch/hlo.py", "launch/dryrun.py")):
-                frames.append(f"{name.split('repro_torch/')[-1]}:"
-                              f"{f.f_lineno}:{f.f_code.co_name}")
-            f = f.f_back
         node = torch._C._current_autograd_node()
         return (type(node).__name__ if node is not None else "forward",
-                func.overloadpacket.__name__, " < ".join(frames))
+                func.overloadpacket.__name__, _site(2))
 
     class Live(base):
         def __init__(self):
@@ -114,18 +142,40 @@ def _live_trace(base):
     return Live
 
 
-def _port(arch: str, shape: str, mesh: str, live: int) -> dict:
+def _collectives(trace, D, n: int) -> list:
+    """The ``n`` largest sums of the collective term (ms) by op, group
+    size and call site: ``[site, ms, link bytes, count]``."""
+    from repro_torch.launch.hlo import _accounting
+    sums = {}
+    for (op, rbytes, ranks, *_), site in zip(trace.records, trace.sites):
+        g = max(len(ranks), 1)
+        link = _accounting(op, rbytes, g)[1]
+        inter = len({r // D.GPUS_PER_NODE for r in ranks}) > 1
+        e = sums.setdefault(f"{op} over {g} | {site}", [0.0, 0, 0])
+        e[0] += 1e3 * link / (D.NET_BW if inter else D.NVLINK_BW)
+        e[1] += link
+        e[2] += 1
+    return sorted(([k] + v for k, v in sums.items()),
+                  key=lambda e: -e[1])[:n]
+
+
+def _port(arch: str, shape: str, live: int, collectives: int) -> dict:
     import torch
     from repro_torch.launch import dryrun as D
     traces = []
-    if live:
-        cls = _live_trace(D.LocalTrace)
+    if live or collectives:
+        cls = D.LocalTrace
+        cls = _live_trace(cls) if live else cls
+        cls = _site_trace(cls) if collectives else cls
         D.LocalTrace = lambda: traces.append(cls()) or traces[-1]
-    D.init_fake_world(512 if mesh == "multi" else 256)
-    r = D.run_cell(arch, shape, mesh, save=False, verbose=False)
+    D.init_fake_world(256)
+    r = D.run_cell(arch, shape, "single", save=False, verbose=False)
     out = {"status": r["status"], "memory": r.get("memory"),
            "timings": r.get("timings"),
            "version": f"torch {torch.__version__}"}
+    if collectives and traces:
+        out["collectives"] = _collectives(traces[-1], D, collectives)
+        out["collective_ms"] = r["roofline"]["collective_s"] * 1e3
     if live and traces:
         sites = {}
         for n, where, shp, dt in traces[-1].snap:
@@ -146,10 +196,11 @@ def _child(argv) -> int:
     ap.add_argument("--child", choices=("port",))
     ap.add_argument("--arch")
     ap.add_argument("--shape")
-    ap.add_argument("--mesh", default="single")
     ap.add_argument("--live", type=int, default=0)
+    ap.add_argument("--collectives", type=int, default=0)
     a = ap.parse_args(argv)
-    print("RESULT " + json.dumps(_port(a.arch, a.shape, a.mesh, a.live)))
+    print("RESULT " + json.dumps(_port(a.arch, a.shape, a.live,
+                                       a.collectives)))
     return 0
 
 
@@ -158,15 +209,16 @@ def _start(kind: str, src: Path, args) -> subprocess.Popen:
         cmd = [sys.executable, "-c", REFERENCE_CELL, args.arch, args.shape]
     else:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--child",
-               "port", "--arch", args.arch, "--shape", args.shape, "--mesh",
-               args.mesh, "--live", str(args.live)]
+               "port", "--arch", args.arch, "--shape", args.shape,
+               "--live", str(args.live), "--collectives",
+               str(args.collectives)]
     env = dict(os.environ, PYTHONPATH=str(src), JAX_PLATFORMS="cpu")
     return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
-def _result(p: subprocess.Popen, what: str, timeout: float) -> dict:
-    out, err = p.communicate(timeout=timeout)
+def _result(p: subprocess.Popen, what: str) -> dict:
+    out, err = p.communicate(timeout=CELL_S)
     lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
     if p.returncode != 0 or not lines:
         sys.exit(f"compare_dryrun: the {what} cell failed "
@@ -181,27 +233,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
-    ap.add_argument("--mesh", choices=("single", "multi"), default="single",
-                    help="the port's mesh (the reference's is single)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the port's tree (default: this checkout's)")
     ap.add_argument("--live", type=int, default=0, metavar="N",
                     help="list the N call sites live at the port's peak")
-    ap.add_argument("--timeout", type=float, default=3600)
+    ap.add_argument("--collectives", type=int, default=0, metavar="N",
+                    help="list the port's N largest collective sums by "
+                         "op, group and call site")
     args = ap.parse_args(argv)
     t0 = time.time()
     ref = _start("ref", ROOT / "src", args)
     port = _start("port", Path(args.src).resolve(), args)
     try:
-        r, p = (_result(ref, "reference", args.timeout),
-                _result(port, "port", args.timeout))
+        r, p = _result(ref, "reference"), _result(port, "port")
     finally:
         for q in (ref, port):
             if q.poll() is None:
                 q.kill()
                 q.wait()
-    print(f"{args.arch} x {args.shape}: reference single, port "
-          f"{args.mesh}; {r['version']}, {p['version']}, on the CPU; "
+    print(f"{args.arch} x {args.shape}, single pod: {r['version']}, "
+          f"{p['version']}, on the CPU; "
           f"{time.time() - t0:.1f} s of wall")
     if r["status"] != "ok" or p["status"] != "ok":
         print(f"reference {r['status']}, port {p['status']}")
@@ -221,8 +272,12 @@ def main(argv=None) -> int:
     if "live_total" in p:
         print(f"  live op outputs at the peak: {p['live_total'] / GIB:.2f} "
               f"GiB")
+    if "collectives" in p:
+        print(f"port's collective term: {p['collective_ms']:.4f} ms")
+        for site, ms, link, count in p["collectives"]:
+            print(f"  {ms:12.4f} ms {link / GIB:9.3f} GiB {count:5d}x  "
+                  f"{site}")
     print(json.dumps({"arch": args.arch, "shape": args.shape,
-                      "port_mesh": args.mesh,
                       "reference_arg_temp_bytes": ref_total,
                       "port_peak_bytes": pm["peak_memory_in_bytes"],
                       "port_over_reference":
