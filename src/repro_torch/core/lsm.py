@@ -72,7 +72,7 @@ import torch
 from . import keys as K
 from . import summarization as S
 from . import tree as T
-from ..obs import get_registry, span as _span
+from ..obs import get_registry, span as _span, stage
 from .metrics import IngestMetrics, IOStats
 
 __all__ = ["CoconutLSM", "Run", "from_numpy", "to_numpy"]
@@ -807,44 +807,47 @@ class CoconutLSM:
         from ..ingest.snapshot import FrozenBuffer, Snapshot
         if include_buffer is None:
             include_buffer = self.concurrent
-        parts = None
-        part_fences = []
-        with self._lock:                 # reference capture only, no copy
-            runs = tuple(self.runs)
-            clock = self.clock
-            epoch = self.data_epoch
-            if include_buffer:
-                parts = []
-                for e in self._flushing:
-                    parts.extend(zip(e.raw_parts, e.ts_parts, e.id_parts))
-                    part_fences.append(e.fence)
-                parts.extend(zip(self._buf_raw, self._buf_ts,
-                                 self._buf_ids))
-                part_fences.extend(self._buf_fence)
-        buf = None
-        if include_buffer:               # batch arrays are immutable —
-            if parts:                    # concatenate outside the lock
-                raw = np.concatenate([p[0] for p in parts])
-                ts = np.concatenate([p[1] for p in parts])
-                ids = np.concatenate([p[2] for p in parts])
-            else:
-                raw = np.zeros((0, self.cfg.series_len), np.float32)
-                ts = np.zeros(0, np.int64)
-                ids = np.zeros(0, np.int64)
-            buf = FrozenBuffer(raw=raw, ts=ts, ids=ids)
-        # key fence over everything the snapshot can see: run fences are
-        # exact (sorted trees); buffer batches contribute the fence their
-        # insert declared, None poisoning the range to "unknown"
-        fences = [r.key_fence for r in runs if r.n]
-        if buf is not None and buf.n:
-            fences.extend(part_fences)
-        fence = _combine_fences(fences) if fences else None
-        return Snapshot(runs=runs, clock=clock, mode=self.mode,
-                        io=self.io, buffer=buf, key_fence=fence,
-                        cfg=self.cfg, tiers=self.tiers, epoch=epoch,
-                        scope=(self.store.root
-                               if self.store is not None else None),
-                        device=self.device)
+        with stage(None, "snapshot") as sp:
+            parts = None
+            part_fences = []
+            with self._lock:                 # reference capture only, no copy
+                runs = tuple(self.runs)
+                clock = self.clock
+                epoch = self.data_epoch
+                if include_buffer:
+                    parts = []
+                    for e in self._flushing:
+                        parts.extend(zip(e.raw_parts, e.ts_parts, e.id_parts))
+                        part_fences.append(e.fence)
+                    parts.extend(zip(self._buf_raw, self._buf_ts,
+                                     self._buf_ids))
+                    part_fences.extend(self._buf_fence)
+            buf = None
+            if include_buffer:               # batch arrays are immutable —
+                if parts:                    # concatenate outside the lock
+                    raw = np.concatenate([p[0] for p in parts])
+                    ts = np.concatenate([p[1] for p in parts])
+                    ids = np.concatenate([p[2] for p in parts])
+                else:
+                    raw = np.zeros((0, self.cfg.series_len), np.float32)
+                    ts = np.zeros(0, np.int64)
+                    ids = np.zeros(0, np.int64)
+                buf = FrozenBuffer(raw=raw, ts=ts, ids=ids)
+            # key fence over everything the snapshot can see: run fences are
+            # exact (sorted trees); buffer batches contribute the fence their
+            # insert declared, None poisoning the range to "unknown"
+            fences = [r.key_fence for r in runs if r.n]
+            if buf is not None and buf.n:
+                fences.extend(part_fences)
+            fence = _combine_fences(fences) if fences else None
+            snap = Snapshot(runs=runs, clock=clock, mode=self.mode,
+                            io=self.io, buffer=buf, key_fence=fence,
+                            cfg=self.cfg, tiers=self.tiers, epoch=epoch,
+                            scope=(self.store.root
+                                   if self.store is not None else None),
+                            device=self.device)
+            sp.set(runs=len(runs), buffer_rows=0 if buf is None else buf.n)
+        return snap
 
     def search_approx(self, query, *, k: int = 1,
                       window: Optional[int] = None,

@@ -7,9 +7,11 @@ imports nothing from the reference package):
   behind the ``subsystem.metric_unit`` naming convention; ``IOStats``
   mirrors into it, the query pipeline folds every ``SearchStats`` into
   it, and :func:`describe_metrics` is the one scrape point.
-* :mod:`repro_torch.obs.trace` — per-query span trees (plan → prune →
-  scan → verify → merge, plus per-shard fan-out), ring-buffered and
-  exported as Chrome/Perfetto ``trace_event`` JSON.
+* :mod:`repro_torch.obs.trace` — per-query span trees (plan → seed →
+  scan → prune / bound → verify → merge, plus per-shard fan-out),
+  ring-buffered and exported as Chrome/Perfetto ``trace_event`` JSON;
+  :func:`stage` times a host stage into ``SearchStats.timings`` and its
+  span with one pair of clock readings.
 * :mod:`repro_torch.obs.querylog` — one structured JSON record per
   probe, size-rotated alongside the WAL; the input for
   workload-adaptive maintenance.
@@ -37,12 +39,12 @@ from .querylog import QueryLog, get_query_log, install_query_log
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        describe_metrics, get_registry, sample_percentile)
 from .trace import (Tracer, disable_tracing, enable_tracing, get_tracer,
-                    span)
+                    span, stage)
 
 __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram",
            "get_registry", "describe_metrics", "sample_percentile",
            "Tracer", "get_tracer", "enable_tracing", "disable_tracing",
-           "span",
+           "span", "stage",
            "QueryLog", "install_query_log", "get_query_log",
            "probe", "record_search", "budget_dict",
            "add_probe_observer", "remove_probe_observer"]

@@ -55,13 +55,13 @@ import numpy as np
 import torch
 
 from ..core import summarization as S
-from ..obs import record_search, span as _span
+from ..obs import record_search, span as _span, stage
 from .executor import (_default_mindist, _leaves_per_group, _ms_since,
-                       _queries_np, _scan_buffer, _scan_leaf_group,
-                       _seed_sorted)
+                       _new_stats, _plan, _queries_np, _scan_buffer,
+                       _scan_leaf_group, _seed_sorted)
 from .merger import KnnPool, SearchStats
 from .partition import Partition
-from .planner import ScanPlan, build_plan
+from .planner import ScanPlan
 
 __all__ = ["Budget", "as_budget", "approx_knn", "certified_gap",
            "progressive_knn"]
@@ -113,9 +113,9 @@ def as_budget(budget: Union[None, int, dict, Budget]) -> Optional[Budget]:
     return Budget(max_leaves=int(budget))
 
 
-def _drain(plan: ScanPlan, queries_np: np.ndarray, *, k: int,
-           budget: Optional[Budget], bsf, radius_leaves: int,
-           chunk: int, io, mindist_fn, plan_ms: float = 0.0
+def _drain(plan: ScanPlan, queries_np: np.ndarray, stats: SearchStats, *,
+           k: int, budget: Optional[Budget], bsf, radius_leaves: int,
+           chunk: int, io, mindist_fn
            ) -> Iterator[Tuple[np.ndarray, np.ndarray, SearchStats]]:
     """The budgeted frontier drain (generator of improving snapshots)."""
     nq = queries_np.shape[0]
@@ -128,11 +128,6 @@ def _drain(plan: ScanPlan, queries_np: np.ndarray, *, k: int,
         return on_device[dev]
 
     pool = KnnPool(nq, k, ext=bsf)
-    stats = SearchStats(exact=False, queries=nq)
-    stats.candidates_per_query = np.zeros(nq, np.int64)
-    stats.leaves_per_query = np.zeros(nq, np.int64)
-    if plan_ms:
-        stats.add_timing("plan", plan_ms)
     budget = budget if budget is not None else Budget()
     t_end = None
     if budget.deadline_ms is not None:
@@ -155,61 +150,66 @@ def _drain(plan: ScanPlan, queries_np: np.ndarray, *, k: int,
     # seed every sorted partition (Algorithm 4 probes, uncharged)
     seeded = []
     total_rows = 0
-    t0 = time.perf_counter()
     for entry in sorted_entries:
-        with _span("seed", radius_leaves=radius_leaves):
+        with stage(stats, "seed", radius_leaves=radius_leaves):
             alive, offs_all, idx0 = _seed_sorted(
-                entry, on(entry.partition.device)[0], pool,
+                entry, on(entry.partition.device)[0], pool, stats,
                 radius_leaves=radius_leaves, io=io)
-        stats.candidates += len(np.unique(idx0))
-        stats.candidates_per_query += idx0.shape[1]
+            stats.candidates += len(np.unique(idx0))
+            stats.candidates_per_query += idx0.shape[1]
         stats.partitions_touched += 1
         total_rows += entry.partition.n
         seeded.append((alive, offs_all))
-    if sorted_entries:
-        stats.add_timing("seed", _ms_since(t0))
 
     # global frontier: every leaf of every sorted partition, keyed by
     # its cheapest per-query bound; stable tie-break on (entry, leaf)
     nl = [e.leaf_bounds.shape[1] for e in sorted_entries]
-    if nl:
-        fent = np.concatenate([np.full(c, i, np.int64)
-                               for i, c in enumerate(nl)])
-        fleaf = np.concatenate([np.arange(c, dtype=np.int64) for c in nl])
-        fkey = np.concatenate([e.leaf_bounds.min(axis=0)
-                               for e in sorted_entries])
-        order = np.lexsort((fleaf, fent, fkey))
-    else:
-        fent = fleaf = order = np.zeros(0, np.int64)
-        fkey = np.zeros(0, np.float32)
-    scanned_mask = [np.zeros(c, bool) for c in nl]
-    leaf_marks = [np.zeros((nq, c), bool) for c in nl]
-    union_marks = [np.zeros(c, bool) for c in nl]
-    per_fn = [_default_mindist(e.partition.cfg) if mindist_fn is None
-              else mindist_fn for e in sorted_entries]
+    with stage(stats, "frontier", leaves=sum(nl)):
+        if nl:
+            fent = np.concatenate([np.full(c, i, np.int64)
+                                   for i, c in enumerate(nl)])
+            fleaf = np.concatenate([np.arange(c, dtype=np.int64)
+                                    for c in nl])
+            fkey = np.concatenate([e.leaf_bounds.min(axis=0)
+                                   for e in sorted_entries])
+            order = np.lexsort((fleaf, fent, fkey))
+        else:
+            fent = fleaf = order = np.zeros(0, np.int64)
+            fkey = np.zeros(0, np.float32)
+        scanned_mask = [np.zeros(c, bool) for c in nl]
+        leaf_marks = [np.zeros((nq, c), bool) for c in nl]
+        union_marks = [np.zeros(c, bool) for c in nl]
+        per_fn = [_default_mindist(e.partition.cfg) if mindist_fn is None
+                  else mindist_fn for e in sorted_entries]
     live_total = 0
 
     def snapshot() -> Tuple[np.ndarray, np.ndarray, SearchStats]:
-        lb_un = np.full(nq, np.inf, np.float32)
-        for i, e in enumerate(sorted_entries):
-            m = ~scanned_mask[i]
-            if m.any():
-                lb_un = np.minimum(lb_un, e.leaf_bounds[:, m].min(axis=1))
-        gap = certified_gap(pool.best_d[:, -1], lb_un)
-        st = dataclasses.replace(stats)
-        st.candidates_per_query = stats.candidates_per_query.copy()
+        with stage(stats, "progress"):
+            lb_un = np.full(nq, np.inf, np.float32)
+            for i, e in enumerate(sorted_entries):
+                m = ~scanned_mask[i]
+                if m.any():
+                    lb_un = np.minimum(lb_un,
+                                       e.leaf_bounds[:, m].min(axis=1))
+            gap = certified_gap(pool.best_d[:, -1], lb_un)
+            st = dataclasses.replace(stats)
+            st.candidates_per_query = stats.candidates_per_query.copy()
+            st.leaf_touches = {p: list(v)
+                               for p, v in stats.leaf_touches.items()}
+            st.leaves_touched = sum(int(u.sum()) for u in union_marks)
+            lpq = np.zeros(nq, np.int64)
+            for m_ in leaf_marks:
+                lpq += m_.sum(axis=1)
+            st.leaves_per_query = lpq
+            st.gap = gap
+            st.lb_unvisited = lb_un
+            st.exact = bool(np.all(gap == 0.0))
+            st.pruned_frac = 1.0 - live_total / max(nq * total_rows, 1)
+            best = pool.best_d.copy(), pool.best_off.copy()
+        # copied after the stage closes, so a snapshot's timings hold
+        # its own progress time too
         st.timings = dict(stats.timings)
-        st.leaf_touches = {p: list(v) for p, v in stats.leaf_touches.items()}
-        st.leaves_touched = sum(int(u.sum()) for u in union_marks)
-        lpq = np.zeros(nq, np.int64)
-        for m_ in leaf_marks:
-            lpq += m_.sum(axis=1)
-        st.leaves_per_query = lpq
-        st.gap = gap
-        st.lb_unvisited = lb_un
-        st.exact = bool(np.all(gap == 0.0))
-        st.pruned_frac = 1.0 - live_total / max(nq * total_rows, 1)
-        return pool.best_d.copy(), pool.best_off.copy(), st
+        return best[0], best[1], st
 
     yield snapshot()
 
@@ -244,6 +244,7 @@ def _drain(plan: ScanPlan, queries_np: np.ndarray, *, k: int,
             # charges, so per-span numbers sum to the SearchStats totals
             b_scanned, b_pruned = stats.leaves_scanned, stats.leaves_pruned
             b_bytes, b_cand = stats.scan_bytes, stats.candidates
+            b_syncs = stats.host_syncs
             with _span("scan", part=label, rows=part.n) as sp:
                 while (pos < total and int(fent[order[pos]]) == ei
                        and len(grp) < cap):
@@ -274,6 +275,7 @@ def _drain(plan: ScanPlan, queries_np: np.ndarray, *, k: int,
                        leaves_pruned=stats.leaves_pruned - b_pruned,
                        scan_bytes=stats.scan_bytes - b_bytes,
                        candidates=stats.candidates - b_cand,
+                       host_syncs=stats.host_syncs - b_syncs,
                        budget_leaves_left=(
                            None if budget.max_leaves is None
                            else int(leaf_cap - stats.leaves_scanned)),
@@ -298,16 +300,17 @@ def _drain(plan: ScanPlan, queries_np: np.ndarray, *, k: int,
     yield snapshot()
 
 
-def _plan(partitions: Sequence[Partition], queries, cfg: S.SummaryConfig,
-          ts_min: Optional[int], temporal_prune: bool, io):
-    """(queries as host float32 ``[Q, L]``, plan, plan ms): the plan is
-    priced on the host from the queries' PAA, as the exact path's is."""
+def _planned_drain(partitions: Sequence[Partition], queries,
+                   cfg: S.SummaryConfig, *, budget, ts_min: Optional[int],
+                   temporal_prune: bool, io, **kw
+                   ) -> Iterator[Tuple[np.ndarray, np.ndarray, SearchStats]]:
+    """The ``plan`` stage (the exact path's), then the drain."""
     queries_np = _queries_np(queries)
-    t0 = time.perf_counter()
-    q_paas = S.paa(torch.from_numpy(queries_np), cfg.segments).numpy()
-    plan = build_plan(partitions, q_paas, ts_min=ts_min,
-                      temporal_prune=temporal_prune, io=io)
-    return queries_np, plan, _ms_since(t0)
+    stats = _new_stats(len(queries_np), False)
+    plan = _plan(partitions, queries_np, cfg, stats, ts_min=ts_min,
+                 temporal_prune=temporal_prune, io=io)
+    return _drain(plan, queries_np, stats, budget=as_budget(budget), io=io,
+                  **kw)
 
 
 def approx_knn(partitions: Sequence[Partition], queries,
@@ -326,12 +329,11 @@ def approx_knn(partitions: Sequence[Partition], queries,
     query.  ``budget=None`` drains every surviving leaf: the answer is
     bit-identical to the exact pipeline and ``gap == 0``.
     """
-    queries_np, plan, plan_ms = _plan(partitions, queries, cfg, ts_min,
-                                      temporal_prune, io)
     out = None
-    for out in _drain(plan, queries_np, k=k, budget=as_budget(budget),
-                      bsf=bsf, radius_leaves=radius_leaves, chunk=chunk,
-                      io=io, mindist_fn=mindist_fn, plan_ms=plan_ms):
+    for out in _planned_drain(partitions, queries, cfg, k=k, budget=budget,
+                              ts_min=ts_min, temporal_prune=temporal_prune,
+                              bsf=bsf, radius_leaves=radius_leaves,
+                              chunk=chunk, io=io, mindist_fn=mindist_fn):
         pass
     return out
 
@@ -356,8 +358,7 @@ def progressive_knn(partitions: Sequence[Partition], queries,
     may stop early — the generator abandons the rest of the scan on
     ``close()``.
     """
-    queries_np, plan, plan_ms = _plan(partitions, queries, cfg, ts_min,
-                                      temporal_prune, io)
-    yield from _drain(plan, queries_np, k=k, budget=as_budget(budget),
-                      bsf=bsf, radius_leaves=radius_leaves, chunk=chunk,
-                      io=io, mindist_fn=mindist_fn, plan_ms=plan_ms)
+    yield from _planned_drain(partitions, queries, cfg, k=k, budget=budget,
+                              ts_min=ts_min, temporal_prune=temporal_prune,
+                              bsf=bsf, radius_leaves=radius_leaves,
+                              chunk=chunk, io=io, mindist_fn=mindist_fn)

@@ -24,12 +24,21 @@ pass: bound + masked verify + top-k on the device) on device-backed
 partitions; on a segment the fusion would stream every pruned row's raw
 bytes off disk, so segments keep the eager chain, as in the reference.
 
-Stage timings (``SearchStats.timings``, milliseconds): ``plan``, ``seed``
-(probe, distances and pool updates), ``bound`` (code gather, bound launch
-and its copy to the host), ``verify`` (row gather, ED or fused launch and
-the copy back), ``merge`` (host pool updates after verification),
-``buffer`` (the brute-force scan of unsorted buffers: copy, ED launch,
-selection and pool update) and ``scan`` (everything after planning).
+Stage timings (``SearchStats.timings``, milliseconds), each also a span
+of the same name while tracing is on (:func:`repro_torch.obs.stage`: one
+pair of clock readings gives both): ``plan`` (the queries' PAA and the
+planner), ``seed`` (one sorted partition's probe: ``seed.window``, the
+query summaries, z-order keys, key search and copy back;
+``seed.distances``, the gathered ED, copy back and ``alive`` mask; and
+its ``merge``), ``bound`` (row indices, code gather, bound launch, copy
+back and live mask), ``verify`` (row gather, ED or fused launch and the
+copy back), ``merge`` (host pool updates: after the seeds, each leaf
+group and the buffer), ``buffer`` (the brute-force scan of an unsorted
+buffer: copy to the device, ED, sort, copy back and its ``merge``) and
+``scan`` (everything after planning, timed apart from the per-partition
+``scan`` spans).  ``SearchStats.host_syncs`` counts the round trips: one
+per bound and per verification of a leaf group (four on the fused path),
+two per seed probe and two per buffer scan.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ import torch
 
 from ..core import summarization as S
 from ..kernels import ops
-from ..obs import record_search, span as _span
+from ..obs import record_search, span as _span, stage
 from .merger import KnnPool, SearchStats
 from .partition import Partition
 from .planner import ScanEntry, ScanPlan, build_plan
@@ -51,9 +60,13 @@ __all__ = ["execute", "exact_knn", "buffer_topk", "SCAN_MODES"]
 SCAN_MODES = (None, "kernel")
 
 
-def _host(x) -> np.ndarray:
-    """A (device) result as a host array."""
+def _host(x, stats: Optional[SearchStats] = None) -> np.ndarray:
+    """A (device) result as a host array.  A tensor is a round trip the
+    search waits for: it counts one ``stats.host_syncs``, on the CPU as
+    on the card."""
     if isinstance(x, torch.Tensor):
+        if stats is not None:
+            stats.host_syncs += 1
         return x.cpu().numpy()
     return np.asarray(x)
 
@@ -69,7 +82,8 @@ def _ms_since(t0: float) -> float:
 
 
 def buffer_topk(queries_t: torch.Tensor, rows: np.ndarray, offs: np.ndarray,
-                k: int, io=None) -> Tuple[np.ndarray, np.ndarray]:
+                k: int, io=None, stats: Optional[SearchStats] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
     """Brute-force per-query ``[Q, k]`` pools over unsorted host rows —
     THE buffer-scan contract (stable sort, (inf, -1) padding) shared by
     the exact executor and the budgeted drain.  The rows are copied to
@@ -90,36 +104,40 @@ def buffer_topk(queries_t: torch.Tensor, rows: np.ndarray, offs: np.ndarray,
     d = ops.batch_euclid_multi(queries_t, rows_t)                # [Q, M]
     take = min(k, d.shape[1])
     vals, sel = torch.sort(d, dim=1, stable=True)
-    best_d[:, :take] = _host(vals[:, :take])
-    best_off[:, :take] = np.asarray(offs, np.int64)[_host(sel[:, :take])]
+    best_d[:, :take] = _host(vals[:, :take], stats)
+    best_off[:, :take] = np.asarray(offs, np.int64)[
+        _host(sel[:, :take], stats)]
     return best_d, best_off
 
 
 def _scan_buffer(entry: ScanEntry, queries_t: torch.Tensor, k: int,
                  pool: KnnPool, stats: SearchStats, io) -> None:
     part = entry.partition
-    t0 = time.perf_counter()
-    rows = part.buffer_raw()
-    offs = part.report_ids()
-    if entry.ts_min is not None:
-        keep = np.nonzero(part.timestamps() >= entry.ts_min)[0]
-        rows, offs = rows[keep], offs[keep]
-    if len(rows):
-        new_d, new_off = buffer_topk(queries_t, rows, offs, k, io=io)
-        pool.update_batch(new_d, new_off)
-        stats.buffer_rows += len(rows)
-        stats.candidates_per_query += len(rows)
-    stats.add_timing("buffer", _ms_since(t0))
+    with stage(stats, "buffer") as sp:
+        rows = part.buffer_raw()
+        offs = part.report_ids()
+        if entry.ts_min is not None:
+            keep = np.nonzero(part.timestamps() >= entry.ts_min)[0]
+            rows, offs = rows[keep], offs[keep]
+        sp.set(rows=len(rows))
+        if len(rows):
+            new_d, new_off = buffer_topk(queries_t, rows, offs, k, io=io,
+                                         stats=stats)
+            with stage(stats, "merge"):
+                pool.update_batch(new_d, new_off)
+            stats.buffer_rows += len(rows)
+            stats.candidates_per_query += len(rows)
 
 
 def _seed_sorted(entry: ScanEntry, queries_t: torch.Tensor, pool: KnnPool,
-                 *, radius_leaves: int, io
+                 stats: SearchStats, *, radius_leaves: int, io
                  ) -> Tuple[Optional[np.ndarray], np.ndarray, np.ndarray]:
     """Seed the pool from the leaves around each query's z-order slot
     (the Algorithm-4 probe).  Returns ``(alive, offs_all, idx0)`` for the
     scan that follows (``idx0``: the probed rows ``[Q, span]``, host).
     Shared by the exact path and the budgeted drain, so seed distance
-    bits are identical by construction."""
+    bits are identical by construction.  Runs inside the caller's
+    ``seed`` stage, with its own stages as children."""
     part = entry.partition
     nq = queries_t.shape[0]
     alive = None
@@ -128,16 +146,20 @@ def _seed_sorted(entry: ScanEntry, queries_t: torch.Tensor, pool: KnnPool,
         if ts is not None:
             alive = ts >= entry.ts_min
     offs_all = part.report_ids()
-    idx0_t = part.seed_window(queries_t, radius_leaves=radius_leaves, io=io)
-    d0 = _host(part.seed_distances(queries_t, idx0_t, io=io))
-    idx0 = _host(idx0_t)
-    if alive is not None:
-        d0 = np.where(alive[idx0], d0, np.inf).astype(np.float32)
-        offs0 = np.where(alive[idx0], offs_all[idx0], -1)
-    else:
-        offs0 = offs_all[idx0]
-    for qi in range(nq):
-        pool.update(qi, d0[qi], offs0[qi])
+    with stage(stats, "seed.window"):
+        idx0_t = part.seed_window(queries_t, radius_leaves=radius_leaves,
+                                  io=io, stats=stats)
+        idx0 = _host(idx0_t, stats)
+    with stage(stats, "seed.distances", rows=idx0.size):
+        d0 = _host(part.seed_distances(queries_t, idx0_t, io=io), stats)
+        if alive is not None:
+            d0 = np.where(alive[idx0], d0, np.inf).astype(np.float32)
+            offs0 = np.where(alive[idx0], offs_all[idx0], -1)
+        else:
+            offs0 = offs_all[idx0]
+    with stage(stats, "merge"):
+        for qi in range(nq):
+            pool.update(qi, d0[qi], offs0[qi])
     return alive, offs_all, idx0
 
 
@@ -161,52 +183,53 @@ def _scan_leaf_group(entry: ScanEntry, queries_t, q_paas_t,
     part = entry.partition
     nq = queries_t.shape[0]
     leaf = part.leaf_size
-    row_idx = (grp[:, None] * leaf
-               + np.arange(leaf)[None, :]).reshape(-1)
-    row_idx = row_idx[row_idx < part.n]
-    nbytes = len(row_idx) * part.cfg.segments
     raw_bytes = part.cfg.series_len * 4
+    with stage(stats, "bound") as bsp:
+        row_idx = (grp[:, None] * leaf
+                   + np.arange(leaf)[None, :]).reshape(-1)
+        row_idx = row_idx[row_idx < part.n]
+        nbytes = len(row_idx) * part.cfg.segments
+        bsp.set(rows=len(row_idx))
+        if fused:
+            codes_blk = part.codes_rows(row_idx, io=io)
+        else:
+            # packed fast path: a v3 segment's stored-form rows go straight
+            # to the unpack_mindist kernel when the bound is the default
+            # one (no host decode; hot tier blocks are already on the
+            # device).  Both bounds give the same bits, so answers never
+            # depend on which one ran.
+            if part.is_packed and getattr(
+                    mindist_fn, "_coconut_default_mindist", False):
+                md = _host(ops.mindist_batch_packed(
+                    q_paas_t, part.codes_rows_packed(row_idx, io=io),
+                    part.cfg), stats)
+            else:
+                md = _host(mindist_fn(q_paas_t,
+                                      part.codes_rows(row_idx, io=io)),
+                           stats)
+            live = md < pool.bound()[:, None]
+            if alive is not None:
+                live &= alive[row_idx][None, :]
+            live_pairs = int(live.sum())
+            keep = live.any(axis=0)
+            block = row_idx[keep]
+            mask = live[:, keep]
     if fused:
-        codes_blk = part.codes_rows(row_idx, io=io)
-        with _span("verify", rows=len(row_idx), fused=True) as vsp:
-            before = stats.candidates
-            live_pairs = _verify_fused(
-                entry, queries_t, q_paas_t, codes_blk, row_idx, k, pool,
-                stats, alive, offs_all, leaf_mark, union_mark, io)
-            vsp.set(candidates=stats.candidates - before,
-                    raw_bytes=len(row_idx) * raw_bytes)
+        live_pairs = _verify_fused(
+            entry, queries_t, q_paas_t, codes_blk, row_idx, k, pool,
+            stats, alive, offs_all, leaf_mark, union_mark, io)
         # the fused kernel takes the whole group's raw rows (that IS the
         # fusion), so the group charges every row's raw bytes
         return live_pairs, nbytes + len(row_idx) * raw_bytes
-    t0 = time.perf_counter()
-    # packed fast path: a v3 segment's stored-form rows go straight to the
-    # unpack_mindist kernel when the bound is the default one (no host
-    # decode; hot tier blocks are already on the device).  Both bounds give
-    # the same bits, so answers never depend on which one ran.
-    if part.is_packed and getattr(mindist_fn, "_coconut_default_mindist",
-                                  False):
-        md = _host(ops.mindist_batch_packed(
-            q_paas_t, part.codes_rows_packed(row_idx, io=io), part.cfg))
-    else:
-        md = _host(mindist_fn(q_paas_t, part.codes_rows(row_idx, io=io)))
-    stats.add_timing("bound", _ms_since(t0))
-    live = md < pool.bound()[:, None]
-    if alive is not None:
-        live &= alive[row_idx][None, :]
-    live_pairs = int(live.sum())
-    keep = live.any(axis=0)
-    if not keep.any():
+    if not len(block):
         return live_pairs, nbytes
-    block = row_idx[keep]
-    mask = live[:, keep]
-    t0 = time.perf_counter()
-    with _span("verify", rows=len(block)) as vsp:
+    with stage(stats, "verify", rows=len(block), candidates=len(block),
+               raw_bytes=len(block) * raw_bytes):
         rows = part.series_rows(block, io=io)
         if part.backend == "device" and io is not None:
             io.seq_read(len(block))
-        dd = _host(ops.batch_euclid_multi(queries_t, rows))  # [Q, B]
-        stats.add_timing("verify", _ms_since(t0))
-        t0 = time.perf_counter()
+        dd = _host(ops.batch_euclid_multi(queries_t, rows), stats)  # [Q, B]
+    with stage(stats, "merge"):
         nbytes += len(block) * raw_bytes
         stats.candidates += len(block)
         union_mark[block // leaf] = True
@@ -217,8 +240,6 @@ def _scan_leaf_group(entry: ScanEntry, queries_t, q_paas_t,
             stats.candidates_per_query[qi] += int(m.sum())
             leaf_mark[qi, block[m] // leaf] = True
             pool.update(qi, dd[qi][m], offs_all[block[m]])
-        vsp.set(candidates=len(block), raw_bytes=len(block) * raw_bytes)
-    stats.add_timing("merge", _ms_since(t0))
     return live_pairs, nbytes
 
 
@@ -232,11 +253,9 @@ def _scan_sorted(entry: ScanEntry, queries_t, q_paas_t, k: int,
     nq = queries_t.shape[0]
     leaf = part.leaf_size
 
-    t0 = time.perf_counter()
-    with _span("seed", radius_leaves=radius_leaves):
-        alive, offs_all, _ = _seed_sorted(entry, queries_t, pool,
+    with stage(stats, "seed", radius_leaves=radius_leaves):
+        alive, offs_all, _ = _seed_sorted(entry, queries_t, pool, stats,
                                           radius_leaves=radius_leaves, io=io)
-    stats.add_timing("seed", _ms_since(t0))
 
     # -- leaf-granular pruning against the fence bounds --------------------
     # (the seed probe above always runs — the external bsf and the fence
@@ -293,36 +312,36 @@ def _verify_fused(entry: ScanEntry, queries_t, q_paas_t, codes_blk,
     part = entry.partition
     nq = queries_t.shape[0]
     dev = queries_t.device
-    t0 = time.perf_counter()
-    rows = part.series_rows(row_idx, io=io)
-    bound = torch.as_tensor(pool.bound(), device=dev)
-    dead = None
-    if alive is not None:
-        dead = torch.as_tensor(~alive[row_idx], device=dev)
-    d, li, counts, union = ops.scan_verify(
-        queries_t, q_paas_t, codes_blk, rows, bound, part.cfg,
-        k=min(k, len(row_idx)), dead=dead)
-    d = _host(d)
-    li = _host(li)
-    counts = _host(counts)
-    union = int(union)
-    stats.add_timing("verify", _ms_since(t0))
-    t0 = time.perf_counter()
-    live = 0
-    for qi in range(nq):
-        stats.candidates_per_query[qi] += int(counts[qi])
-        live += int(counts[qi])
-        fin = np.isfinite(d[qi])
-        if not fin.any():
-            continue
-        rows_qi = row_idx[li[qi][fin]]
-        leaf_mark[qi, rows_qi // part.leaf_size] = True
-        union_mark[rows_qi // part.leaf_size] = True
-        pool.update(qi, d[qi][fin], offs_all[rows_qi])
-    stats.candidates += union
-    if io is not None:
-        io.seq_read(len(row_idx))
-    stats.add_timing("merge", _ms_since(t0))
+    with stage(stats, "verify", rows=len(row_idx), fused=True,
+               raw_bytes=len(row_idx) * part.cfg.series_len * 4) as vsp:
+        rows = part.series_rows(row_idx, io=io)
+        bound = torch.as_tensor(pool.bound(), device=dev)
+        dead = None
+        if alive is not None:
+            dead = torch.as_tensor(~alive[row_idx], device=dev)
+        d, li, counts, union = ops.scan_verify(
+            queries_t, q_paas_t, codes_blk, rows, bound, part.cfg,
+            k=min(k, len(row_idx)), dead=dead)
+        d = _host(d, stats)
+        li = _host(li, stats)
+        counts = _host(counts, stats)
+        union = int(_host(union, stats))
+        stats.candidates += union
+        vsp.set(candidates=union)
+    with stage(stats, "merge"):
+        live = 0
+        for qi in range(nq):
+            stats.candidates_per_query[qi] += int(counts[qi])
+            live += int(counts[qi])
+            fin = np.isfinite(d[qi])
+            if not fin.any():
+                continue
+            rows_qi = row_idx[li[qi][fin]]
+            leaf_mark[qi, rows_qi // part.leaf_size] = True
+            union_mark[rows_qi // part.leaf_size] = True
+            pool.update(qi, d[qi][fin], offs_all[rows_qi])
+        if io is not None:
+            io.seq_read(len(row_idx))
     return live
 
 
@@ -353,15 +372,44 @@ def execute(plan: ScanPlan, queries, *, k: int = 1,
     ``scan_verify`` on device-backed partitions: the CUDA kernel on a CUDA
     partition, its plain twin on a CPU one; segments stay eager).
     """
+    queries_np = _queries_np(queries)
+    return _execute(plan, queries_np, _new_stats(len(queries_np), True),
+                    k=k, bsf=bsf, radius_leaves=radius_leaves, chunk=chunk,
+                    io=io, mindist_fn=mindist_fn, scan_mode=scan_mode)
+
+
+def _new_stats(nq: int, exact: bool) -> SearchStats:
+    stats = SearchStats(exact=exact, queries=nq)
+    stats.candidates_per_query = np.zeros(nq, np.int64)
+    stats.leaves_per_query = np.zeros(nq, np.int64)
+    return stats
+
+
+def _plan(partitions: Sequence[Partition], queries_np: np.ndarray,
+          cfg: S.SummaryConfig, stats: SearchStats, *,
+          ts_min: Optional[int], temporal_prune: bool, io) -> ScanPlan:
+    """The ``plan`` stage: the queries' PAA and :func:`build_plan`.  The
+    plan is priced on the host from the PAA (the same numbers on any
+    device)."""
+    with stage(stats, "plan", queries=len(queries_np)) as sp:
+        q_paas = S.paa(torch.from_numpy(queries_np), cfg.segments).numpy()
+        plan = build_plan(partitions, q_paas, ts_min=ts_min,
+                          temporal_prune=temporal_prune, io=io)
+        sp.set(partitions=plan.n_partitions,
+               buffers=sum(not e.partition.is_sorted for e in plan.entries),
+               window_dropped=plan.window_dropped)
+    return plan
+
+
+def _execute(plan: ScanPlan, queries_np: np.ndarray, stats: SearchStats, *,
+             k: int, bsf: Optional[np.ndarray], radius_leaves: int,
+             chunk: int, io, mindist_fn, scan_mode: Optional[str]
+             ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
     if scan_mode not in SCAN_MODES:
         raise ValueError(f"scan_mode must be one of {SCAN_MODES}, "
                          f"got {scan_mode!r}")
-    queries_np = _queries_np(queries)
     nq = queries_np.shape[0]
     pool = KnnPool(nq, k, ext=bsf)
-    stats = SearchStats(exact=True, queries=nq)
-    stats.candidates_per_query = np.zeros(nq, np.int64)
-    stats.leaves_per_query = np.zeros(nq, np.int64)
     live_pairs = 0
     total_rows = 0
     on_device = {}
@@ -374,11 +422,13 @@ def execute(plan: ScanPlan, queries, *, k: int = 1,
             on_device[dev] = (torch.as_tensor(queries_np, device=dev),
                               torch.as_tensor(plan.q_paas, device=dev))
         queries_t, q_paas_t = on_device[dev]
+        b_syncs = stats.host_syncs
         if not part.is_sorted:
             with _span("scan", part=label, rows=part.n) as sp:
                 before_rows = stats.buffer_rows
                 _scan_buffer(entry, queries_t, k, pool, stats, io)
-                sp.set(buffer_rows=stats.buffer_rows - before_rows)
+                sp.set(buffer_rows=stats.buffer_rows - before_rows,
+                       host_syncs=stats.host_syncs - b_syncs)
             continue
         part_mindist = (_default_mindist(part.cfg) if mindist_fn is None
                         else mindist_fn)
@@ -399,7 +449,8 @@ def execute(plan: ScanPlan, queries, *, k: int = 1,
             sp.set(leaves_scanned=stats.leaves_scanned - b_scanned,
                    leaves_pruned=stats.leaves_pruned - b_pruned,
                    scan_bytes=stats.scan_bytes - b_bytes,
-                   candidates=stats.candidates - b_cand)
+                   candidates=stats.candidates - b_cand,
+                   host_syncs=stats.host_syncs - b_syncs)
         if stats.partitions_pruned == pruned_before:
             stats.partitions_touched += 1
     stats.add_timing("scan", _ms_since(t_scan))
@@ -417,17 +468,11 @@ def exact_knn(partitions: Sequence[Partition], queries,
               scan_mode: Optional[str] = None
               ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
     """Plan + execute in one call — the pipeline every exact-search entry
-    point delegates to.  The plan is priced on the host from the queries'
-    PAA (the same numbers on any device)."""
+    point delegates to."""
     queries_np = _queries_np(queries)
-    t0 = time.perf_counter()
-    q_paas = S.paa(torch.from_numpy(queries_np), cfg.segments).numpy()
-    plan = build_plan(partitions, q_paas, ts_min=ts_min,
-                      temporal_prune=temporal_prune, io=io)
-    plan_ms = _ms_since(t0)
-    d, off, stats = execute(plan, queries_np, k=k, bsf=bsf,
-                            radius_leaves=radius_leaves, chunk=chunk,
-                            io=io, mindist_fn=mindist_fn,
-                            scan_mode=scan_mode)
-    stats.add_timing("plan", plan_ms)
-    return d, off, stats
+    stats = _new_stats(len(queries_np), True)
+    plan = _plan(partitions, queries_np, cfg, stats, ts_min=ts_min,
+                 temporal_prune=temporal_prune, io=io)
+    return _execute(plan, queries_np, stats, k=k, bsf=bsf,
+                    radius_leaves=radius_leaves, chunk=chunk, io=io,
+                    mindist_fn=mindist_fn, scan_mode=scan_mode)

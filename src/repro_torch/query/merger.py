@@ -55,6 +55,13 @@ class SearchStats:
     rather than on the bounds; ``scan_bytes`` counts the code + raw
     bytes the leaf scan streamed (the currency of ``max_bytes``,
     identical across backends — seeds and buffer scans are uncharged).
+
+    ``host_syncs`` counts the search's round trips: each result tensor
+    the pipeline turned into a host array or scalar and waited for (a
+    bound, a verification, a seed window and its distances, a buffer
+    scan's top-k), counted on the CPU as on the card.  Host copies cached
+    once per source (a tree's fences, ids and timestamps) and the
+    caller's queries are not counted.
     """
     candidates: int = 0          # raw series whose true ED was computed
     pruned_frac: float = 0.0     # fraction of (query, row) pairs pruned
@@ -74,11 +81,14 @@ class SearchStats:
     budget_exhausted: bool = False   # drain stopped on the budget
     gap: Optional[np.ndarray] = None          # [Q] certified epsilon bound
     lb_unvisited: Optional[np.ndarray] = None  # [Q] min unvisited-leaf lb
-    # Observability riders (never affect answers): per-stage wall times
-    # and the touched leaf ids per partition (capped), for the query log.
+    # Observability riders (never affect answers): per-stage wall times,
+    # the touched leaf ids per partition (capped), for the query log, and
+    # the device-to-host conversions the search waited for.
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
     leaf_touches: Dict[str, List[int]] = dataclasses.field(
         default_factory=dict)
+
+    host_syncs: int = 0
 
     LEAF_TOUCH_CAP = 64   # max touched-leaf ids kept per partition
 
@@ -105,6 +115,7 @@ class SearchStats:
         self.partitions_pruned += other.partitions_pruned
         self.buffer_rows += other.buffer_rows
         self.scan_bytes += other.scan_bytes
+        self.host_syncs += other.host_syncs
         self.budget_exhausted = (self.budget_exhausted
                                  or other.budget_exhausted)
         for stage, ms in other.timings.items():

@@ -177,7 +177,7 @@ class Partition:
         return fences, last
 
     def seed_window(self, queries: torch.Tensor, *, radius_leaves: int = 1,
-                    io: Optional[IOStats] = None):
+                    io: Optional[IOStats] = None, stats=None):
         """Row indices ``[Q, span]`` of the rows around each query's
         z-order insertion point — the Algorithm-4 probe that seeds the
         exact scan's best-so-far pool (``queries`` on :attr:`device`).
@@ -187,24 +187,28 @@ class Partition:
         tree's device comes back), the segment by a fence search refined
         inside ONE leaf of the mmap'd key column (a host array comes
         back), so the windows are identical across kinds.  The query keys
-        are the ``sax_summarize`` + ``zorder`` kernels' on the card."""
+        are the ``sax_summarize`` + ``zorder`` kernels' on the card; the
+        segment's copy of them to the host counts one
+        ``stats.host_syncs``."""
         if self.kind == "tree":
             from ..core.tree import _seed_index
             idx = _seed_index(self.source, queries,
                               radius_leaves=radius_leaves)
         else:
-            idx = self._segment_window(queries, radius_leaves, io)
+            idx = self._segment_window(queries, radius_leaves, io, stats)
         if io is not None:
             io.rand_read(2 * radius_leaves * len(idx))
         return idx
 
     def _segment_window(self, queries: torch.Tensor, radius_leaves: int,
-                        io: Optional[IOStats]) -> np.ndarray:
+                        io: Optional[IOStats], stats) -> np.ndarray:
         from ..kernels import ops
         cfg = self.cfg
         nq = queries.shape[0]
         _, q_codes = ops.sax_summarize(queries, cfg)
         q_keys = ops.zorder(q_codes, cfg).cpu().numpy()         # [Q, nw]
+        if stats is not None:
+            stats.host_syncs += 1
         # fence bytes were already charged when the planner read the fence
         # column for the leaf envelopes; the probe rereads the same (now
         # hot) pages, so it is not charged again

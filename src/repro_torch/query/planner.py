@@ -20,10 +20,12 @@ into a :class:`ScanPlan`:
     executor scans only surviving leaves, cheapest bound first — the
     paper's skip-sequential SIMS discipline at leaf granularity.
 
-The envelope math runs on the host in numpy, as in the reference: keys
-in ``[lo, hi]`` share their common bit prefix; interleaved bit ``p = i*w + j`` is bit
-``b-1-i`` of segment ``j``, so a prefix of length P pins the top bits
-of each segment's code and the free bits span the envelope.
+The callers time and trace the planner as their ``plan`` stage, with the
+queries' PAA.  The envelope math runs on the host in numpy, as in the
+reference: keys in ``[lo, hi]`` share their common bit prefix;
+interleaved bit ``p = i*w + j`` is bit ``b-1-i`` of segment ``j``, so a
+prefix of length P pins the top bits of each segment's code and the free
+bits span the envelope.
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..core import summarization as S
-from ..obs import span as _span
 from .partition import Partition
 
 __all__ = ["ScanPlan", "ScanEntry", "build_plan", "leaf_envelopes",
@@ -129,6 +130,7 @@ class ScanPlan:
     entries: List[ScanEntry]
     q_paas: np.ndarray             # [Q, w] float32
     nq: int
+    window_dropped: int = 0        # partitions wholly outside the window
 
     @property
     def n_partitions(self) -> int:
@@ -193,36 +195,32 @@ def build_plan(partitions: Sequence[Partition], q_paas: np.ndarray, *,
     """
     q_paas = np.atleast_2d(np.asarray(q_paas, np.float32))
     nq = q_paas.shape[0]
-    with _span("plan", queries=nq) as sp:
-        buffers: List[ScanEntry] = []
-        sorted_entries: List[ScanEntry] = []
-        dropped = 0
-        for part in partitions:
-            if part.n == 0:
-                continue
-            eff_ts = ts_min
-            if ts_min is not None and part.ts_range is not None:
-                t_lo, t_hi = part.ts_range
-                if temporal_prune and t_hi < ts_min:
-                    dropped += 1
-                    continue           # wholly outside the window
-                if t_lo >= ts_min:
-                    eff_ts = None      # wholly inside: no row filter
-            if not part.is_sorted:
-                buffers.append(ScanEntry(part, eff_ts,
-                                         np.zeros(nq, np.float32), None))
-                continue
-            env_lo, env_hi, part_env = _partition_envelopes(part, io=io)
-            leaf_bounds = envelope_mindist_sq(q_paas, env_lo, env_hi,
-                                              part.cfg)
-            # the partition-level bound is the envelope of (first, last) key
-            part_bound = envelope_mindist_sq(q_paas, *part_env,
-                                             part.cfg)[:, 0]
-            sorted_entries.append(ScanEntry(part, eff_ts, part_bound,
-                                            leaf_bounds))
-        order = np.argsort([e.part_bound.mean() for e in sorted_entries],
-                           kind="stable")
-        entries = buffers + [sorted_entries[i] for i in order]
-        sp.set(partitions=len(entries), buffers=len(buffers),
-               window_dropped=dropped)
-    return ScanPlan(entries=entries, q_paas=q_paas, nq=nq)
+    buffers: List[ScanEntry] = []
+    sorted_entries: List[ScanEntry] = []
+    dropped = 0
+    for part in partitions:
+        if part.n == 0:
+            continue
+        eff_ts = ts_min
+        if ts_min is not None and part.ts_range is not None:
+            t_lo, t_hi = part.ts_range
+            if temporal_prune and t_hi < ts_min:
+                dropped += 1
+                continue           # wholly outside the window
+            if t_lo >= ts_min:
+                eff_ts = None      # wholly inside: no row filter
+        if not part.is_sorted:
+            buffers.append(ScanEntry(part, eff_ts,
+                                     np.zeros(nq, np.float32), None))
+            continue
+        env_lo, env_hi, part_env = _partition_envelopes(part, io=io)
+        leaf_bounds = envelope_mindist_sq(q_paas, env_lo, env_hi, part.cfg)
+        # the partition-level bound is the envelope of (first, last) key
+        part_bound = envelope_mindist_sq(q_paas, *part_env, part.cfg)[:, 0]
+        sorted_entries.append(ScanEntry(part, eff_ts, part_bound,
+                                        leaf_bounds))
+    order = np.argsort([e.part_bound.mean() for e in sorted_entries],
+                       kind="stable")
+    entries = buffers + [sorted_entries[i] for i in order]
+    return ScanPlan(entries=entries, q_paas=q_paas, nq=nq,
+                    window_dropped=dropped)
