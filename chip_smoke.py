@@ -426,8 +426,74 @@ def kernel_phase(torch, np, S, ops, ref, pack_codes, dev) -> dict:
                             scale=cfg.series_len / cfg.segments, k=k)
                         for g, w_ in zip(got, want):
                             same("mesh_scan", g, w_)
+    pool_merge_sweep(torch, np, S, ops, ref, dev, rng, launched, same)
     serving_shapes(torch, np, S, ops, ref, pack_codes, dev, rng, err)
     return err
+
+
+def pool_merge_sweep(torch, np, S, ops, ref, dev, rng, launched, same
+                     ) -> None:
+    """The exact loop's fold at its shapes: Q = 64 with one 2000-row leaf a
+    group and Q <= 8 with two, k 1 and 10, over a partition of six leaves
+    (the last short).  Four groups folded in turn into pools that start
+    unfilled, the third the first again (every id it brings is pooled),
+    the second and fourth with a dead-row mask; an external bound below the
+    k-th on every fourth query.  The bound and the cross ED come from the
+    kernels, half the queries are the partition's rows with noise.  After
+    every fold the pools, counts and marks equal the twin's bit for bit."""
+    cfg, leaf, n_leaves = S.SummaryConfig(256, 16, 8), 2000, 6
+    n = n_leaves * leaf - 37
+    x = torch.from_numpy(walks(np, rng, n, cfg.series_len)).to(dev)
+    _, codes = S.summarize(x, cfg)
+    ids = torch.from_numpy(rng.permutation(4 * n)[:n].astype(np.int64)
+                           ).to(dev)
+    dead = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+    lanes = torch.arange(leaf, device=dev)
+    for nq, b_leaves in ((64, 1), (8, 2), (1, 2)):
+        qt = torch.from_numpy(walks(np, rng, nq, cfg.series_len)).to(dev)
+        half = nq // 2
+        if half:
+            rows = torch.from_numpy(rng.integers(0, n, half)).to(dev)
+            qt[:half] = x[rows] + 0.1 * torch.from_numpy(walks(
+                np, rng, half, cfg.series_len)).to(dev)
+        q_paas = S.paa(qt, cfg.segments)
+        groups = [np.sort(rng.choice(n_leaves, b_leaves, replace=False))
+                  for _ in range(3)]
+        groups.insert(2, groups[0])
+        for k in (1, 10):
+            card = dict(
+                best_d=torch.full((nq, k), float("inf"), device=dev),
+                best_off=torch.full((nq, k), -1, dtype=torch.int64,
+                                    device=dev),
+                ext=torch.full((nq,), float("inf"), device=dev),
+                counts=torch.zeros(nq, dtype=torch.int64, device=dev),
+                row_mark=torch.zeros(n_leaves * leaf, dtype=torch.uint8,
+                                     device=dev),
+                leaf_mark=torch.zeros((nq, n_leaves), dtype=torch.uint8,
+                                      device=dev))
+            twin = {name: t.clone() for name, t in card.items()}
+            for gi, grp in enumerate(groups):
+                leaves = torch.from_numpy(grp.astype(np.int64)).to(dev)
+                b = (len(grp) - 1) * leaf + min(leaf,
+                                                n - int(grp[-1]) * leaf)
+                sel = (leaves[:, None] * leaf + lanes).reshape(-1)[:b]
+                md = ops.mindist_batch(q_paas, codes[sel], cfg)
+                dd = ops.batch_euclid_multi(qt, x[sel])
+                if gi == 0:
+                    ext = dd.median(dim=1).values
+                    card["ext"][::4] = twin["ext"][::4] = ext[::4]
+                cut = dead if gi % 2 else None
+                launched(ops.pool_merge(md, dd, leaves, leaf, cut, ids,
+                                        **card))
+                ref.pool_merge_ref(md, dd, leaves, leaf, cut, ids, **twin)
+                for name, t in card.items():
+                    want = twin[name]
+                    if t.dtype == torch.float32:
+                        t, want = t.view(torch.int32), want.view(torch.int32)
+                    same("pool_merge", t, want)
+            check(int(twin["counts"].sum()) > 0
+                  and int(twin["best_off"].min()) >= 0,
+                  f"pool_merge sweep Q={nq}, k={k}: the pools never filled")
 
 
 def serving_shapes(torch, np, S, ops, ref, pack_codes, dev, rng,
@@ -646,7 +712,8 @@ def same_answers(np, a, b, what: str) -> None:
 
 def split_line(stats) -> str:
     tm = stats.timings
-    staged = sum(tm.get(s, 0.0) for s in ("seed", "bound", "verify", "merge"))
+    staged = sum(tm.get(s, 0.0)
+                 for s in ("seed", "bound", "verify", "merge", "sync"))
     return (", ".join(f"{s}={tm.get(s, 0.0) / 1e3:.3f}"
                       for s in ("plan", "seed", "bound", "verify", "merge"))
             + f", host-other={(tm['scan'] - staged) / 1e3:.3f}, "
@@ -3152,6 +3219,94 @@ def pod_phase(torch, np) -> dict:
     print(f"pod phase: {time.perf_counter() - t0:.1f} s")
 
 
+def pool_merge_cases(torch, np, ops, ref, errs: dict, *, part, q, md,
+                     raw_leaf, first: int, seed, final, live, live_t) -> dict:
+    """Phase 9's records of ``pool_merge`` at the exact loop's first group
+    (leaf ``first`` of the tree behind ``part``, its bound ``md``): the
+    pools as the seed (``seed``: its distances and rows) leaves them, and
+    as the batch ends (``final``: its answers), where nothing enters.
+    Checks each against the twin bit for bit, and its live pairs against
+    scan_verify's (``live``, ``live_t``: pairs and rows), recording the
+    error in ``errs``.  A launch changes its pools, so each gets a fresh
+    copy made before the timing; marks and counts only accumulate and are
+    shared."""
+    tree, leaf = part.source, part.leaf_size
+    nq, nl = md.shape
+    dev = q.device
+    dd_leaf = ops.batch_euclid_multi(q, raw_leaf)
+    leaf_ix = torch.tensor([first], dtype=torch.int64, device=dev)
+    tree_ids = part.device_report_ids()
+    seed_d, seed_idx = seed
+    sd, si = torch.sort(seed_d, dim=1, stable=True)
+    pools = {
+        "pool_merge": (sd[:, :K].contiguous(),
+                       tree_ids[seed_idx.gather(1, si[:, :K])].contiguous()),
+        "pool_merge_tight": (
+            torch.from_numpy(np.ascontiguousarray(final[0], np.float32)
+                             ).to(dev),
+            torch.from_numpy(np.ascontiguousarray(final[1], np.int64)
+                             ).to(dev))}
+    shared = dict(
+        ext=torch.full((nq,), float("inf"), device=dev),
+        counts=torch.zeros(nq, dtype=torch.int64, device=dev),
+        row_mark=torch.zeros(tree.n_leaves * leaf, dtype=torch.uint8,
+                             device=dev),
+        leaf_mark=torch.zeros((nq, tree.n_leaves), dtype=torch.uint8,
+                              device=dev))
+
+    def states(name, n):
+        d_, o_ = pools[name]
+        return iter([dict(shared, best_d=d_.clone(), best_off=o_.clone())
+                     for _ in range(n)])
+
+    def run(fn, it):
+        return lambda: fn(md, dd_leaf, leaf_ix, leaf, None, tree_ids,
+                          **next(it))
+
+    for name, (pairs, _) in (("pool_merge", live),
+                             ("pool_merge_tight", live_t)):
+        got, want = ({n_: t.clone() for n_, t in next(states(
+            name, 1)).items()} for _ in range(2))
+        ops.pool_merge(md, dd_leaf, leaf_ix, leaf, None, tree_ids, **got)
+        ref.pool_merge_ref(md, dd_leaf, leaf_ix, leaf, None, tree_ids, **want)
+        for n_, t in got.items():
+            w_ = want[n_]
+            if t.dtype == torch.float32:
+                t, w_ = t.view(torch.int32), w_.view(torch.int32)
+            check(torch.equal(t, w_),
+                  f"{name} differs at main-path shape ({n_})")
+            errs[name] = max(errs.get(name, 0.0), max_abs_err(torch, t, w_))
+        check(int(got["counts"].sum()) == pairs,
+              f"{name} counted {int(got['counts'].sum())} live pairs, "
+              f"scan_verify {pairs} under the same bound")
+    n_states = TIMED + PLAIN_TIMED + 8      # more than the timer calls
+
+    def bound(pairs, live_rows):
+        """The least work: the bound md read once; per live pair its
+        distance, per live row its id and mark; the pools and the external
+        bound read, the counts read and written, the pools written back, a
+        leaf mark a query.  Operations: a compare a pair, no arithmetic."""
+        return bound_ms(nq * nl * 4 + pairs * 4 + live_rows * 9
+                        + nq * K * 12 * 2 + nq * (4 + 8 * 2 + 1), nq * nl)
+
+    out = {}
+    for name, (pairs, rows), when in (
+            ("pool_merge", live, "the seed's pools"),
+            ("pool_merge_tight", live_t, "the batch's final pools")):
+        out[name] = dict(
+            source="src/repro_torch/kernels/csrc/pool_merge.cu",
+            replaces="none (the reference merges on the host: "
+                     "src/repro/query/merger.py:116 merge_topk)",
+            shape=f"Q={nq} x B={nl} rows (one leaf), k={K}, {when}: "
+                  f"{pairs} live pairs, {rows} live rows",
+            fn=run(ops.pool_merge, states(name, n_states)),
+            plain=run(ref.pool_merge_ref, states(name, n_states)),
+            library=None,
+            bound=bound(pairs, rows))
+    out["pool_merge_tight"]["launches_of"] = "pool_merge"
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3240,7 +3395,8 @@ def main() -> int:
 
     # -- 4: eager batched exact search -----------------------------------------
     # the first batch records the rows of every cross-form launch (the
-    # executor verifies one leaf group's union-live rows per launch)
+    # executor verifies every row of one leaf group per launch, then folds
+    # the group into the pools on the card with one pool_merge launch)
     cross_rows = []
     euclid_multi = ops.batch_euclid_multi
 
@@ -3258,23 +3414,39 @@ def main() -> int:
     finally:
         ops.batch_euclid_multi = euclid_multi
     eager_launches = dict(loader.LAUNCHES)
-    for name in ("mindist_batch", "batch_euclid", "batch_euclid_gather"):
+    for name in ("mindist_batch", "batch_euclid", "batch_euclid_gather",
+                 "pool_merge"):
         check(eager_launches.get(name, 0) > 0,
               f"eager search launched no {name}: {eager_launches}")
+    # one cross-form launch and one fold a group issued, and at Q = 64 a
+    # group is one leaf: every surviving leaf's group went through the fold
+    check(eager_launches["pool_merge"] == len(cross_rows)
+          == e_stats.leaves_scanned,
+          f"eager search: {eager_launches['pool_merge']} pool_merge "
+          f"launches, {len(cross_rows)} cross-form launches, "
+          f"{e_stats.leaves_scanned} leaves scanned")
+    check(e_stats.host_syncs == 3,
+          f"eager search waited {e_stats.host_syncs} times, not 3 (2 for "
+          f"the seed, 1 for the pools' copy back)")
     t0 = time.perf_counter()
     e_d2, e_o2, e_stats2 = T.exact_search_batch(tree, queries, k=K)
     eager_s = time.perf_counter() - t0
     check(np.array_equal(e_o, e_o2) and np.array_equal(e_d, e_d2),
           "two eager runs disagree")
     tm = e_stats2.timings
-    staged = sum(tm.get(s, 0.0) for s in ("seed", "bound", "verify", "merge"))
+    staged = sum(tm.get(s, 0.0)
+                 for s in ("seed", "bound", "verify", "merge", "sync"))
     host = tm["scan"] - staged
     print(f"eager: Q={N_QUERIES} k={K}: {eager_cold_s:.3f} s first batch, "
           f"{eager_s:.3f} s per batch warm; launches {eager_launches}")
     print("eager split (s): " + ", ".join(
         f"{s}={tm.get(s, 0.0) / 1e3:.3f}"
-        for s in ("plan", "seed", "bound", "verify", "merge"))
+        for s in ("plan", "seed", "bound", "verify", "merge", "sync"))
         + f", host-other={host / 1e3:.3f}, scan={tm['scan'] / 1e3:.3f}")
+    issue_us = (tm["bound"] + tm["verify"] + tm["merge"]) * 1e3
+    print(f"eager issue: {issue_us / len(cross_rows):.1f} us of host time a "
+          f"group (the bound, verify and merge stages over "
+          f"{len(cross_rows)} groups; the seed's merge included)")
     print(f"eager stats: leaves_scanned={e_stats2.leaves_scanned} "
           f"leaves_pruned={e_stats2.leaves_pruned} "
           f"candidates={e_stats2.candidates} "
@@ -3296,6 +3468,7 @@ def main() -> int:
           f"({100 * busy / (eager_s * 1e3):.2f}%)")
     kernel_total(e_prof, "euclid_cross", "eager batch_euclid cross kernels")
     kernel_total(e_prof, "MindistBatch", "eager mindist_batch kernels")
+    kernel_total(e_prof, "pool_merge", "eager pool_merge kernels")
 
     # -- 5: fused search ---------------------------------------------------------
     part = Partition.from_tree(tree)
@@ -3606,6 +3779,10 @@ def main() -> int:
         # phase 2's ragged sweep and the main-path shapes; the tight case
         # is measured here only
         errs[name] = max(errs.get(name, 0.0), max_abs_err(torch, got, want))
+    pm_cases = pool_merge_cases(
+        torch, np, ops, ref, errs, part=part, q=q, md=md, raw_leaf=raw_leaf,
+        first=first, seed=(seed_d, seed_idx), final=(e_d, e_o),
+        live=(live_pairs, union), live_t=(live_pairs_t, union_t))
     cases = {
         "mindist_batch": dict(
             source="src/repro_torch/kernels/csrc/mindist_batch.cu",
@@ -3719,6 +3896,7 @@ def main() -> int:
                            + nq * (L + w + 2) * 4 + 2 * card * 4
                            + nq * K * 8 + 4,
                            nq * mrows * (7 * w + 3 * L - 1))),
+        **pm_cases,
         "fused_build": dict(
             source="src/repro_torch/kernels/csrc/fused_build.cu",
             replaces="src/repro/kernels/fused_build.py:57",
@@ -3827,6 +4005,11 @@ def main() -> int:
     zo_read = timer.ms(lambda: ops.zorder(c_codes, cfg), read=True)
     print(f"kernel zorder [N={nc} x w={w}]: L2 warm {zo_warm:.4f} ms, L2 "
           f"flushed by a read {zo_read:.4f} ms")
+
+    # the launch floor under the same events: a one-element fill
+    one = torch.zeros(1, device=dev)
+    floor_ms = timer.ms(lambda: one.fill_(1.0))
+    print(f"launch floor [a one-element fill, L2 cold]: {floor_ms:.4f} ms")
 
     # ops.mindist over one leaf, the single-query kernel's earlier row
     ms1 = timer.ms(lambda: ops.mindist(q_paas[0], codes_leaf, cfg))

@@ -76,8 +76,9 @@ class CoconutTree:
     def device(self) -> torch.device:
         return self.keys.device
 
-    def series(self, idx: torch.Tensor) -> torch.Tensor:
-        """Fetch raw series rows for sorted-order indices ``idx``."""
+    def series(self, idx) -> torch.Tensor:
+        """Fetch raw series rows for sorted-order indices ``idx`` (a
+        tensor, or a slice: then a view of a materialized tree's rows)."""
         if self.raw is not None:
             return self.raw[idx]
         return self.raw_ref[self.offsets[idx]]

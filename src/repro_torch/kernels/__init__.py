@@ -17,5 +17,7 @@ counts them):
                      probes, builds from precomputed codes)
   * unpack_mindist — batched lower bound over bit-packed (format v3) code
                      rows (the scan of an on-disk segment)
+  * pool_merge     — folds a leaf group's candidates into the exact scan's
+                     per-query pools on the card (no TPU counterpart)
 """
 from . import ops, ref  # noqa: F401

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "coconut_zorder": [_P, _P, _LL] + [_I] * 5 + [_P],
     "coconut_unpack_mindist": [_P] * 5 + [_I, _LL, _I, _I, _I, _I, _F]
     + [_I] * 3 + [_P],
+    "coconut_pool_merge": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 

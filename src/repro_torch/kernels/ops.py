@@ -23,6 +23,8 @@ from .batch_euclid import batch_euclid_gather as _euclid_gather
 from .fused_build import fused_build as _fused_build
 from .mesh_scan import mesh_scan_launch as _mesh_scan
 from .mindist_batch import mindist_batch as _mindist_batch
+from .pool_merge import MAX_K as POOL_MAX_K
+from .pool_merge import pool_merge
 from .sax_summarize import sax_summarize as _sax_summarize
 from .scan_verify import scan_verify as _scan_verify
 from .unpack_mindist import unpack_mindist as _unpack_mindist
@@ -30,7 +32,8 @@ from .zorder import zorder as _zorder
 
 __all__ = ["mindist", "mindist_batch", "mindist_batch_packed",
            "batch_euclid", "batch_euclid_multi", "scan_verify", "mesh_scan",
-           "sax_summarize", "zorder", "summarize_and_key"]
+           "sax_summarize", "zorder", "summarize_and_key", "pool_merge",
+           "POOL_MAX_K"]
 
 
 @functools.lru_cache(maxsize=None)

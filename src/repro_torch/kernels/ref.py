@@ -32,7 +32,7 @@ __all__ = ["ED_LANES", "ed_pairs", "mindist_batch_ref", "batch_euclid_ref",
            "batch_euclid_blocked_ref", "batch_euclid_gather_ref",
            "scan_verify_ref", "local_scan_topk", "mesh_scan_ref",
            "fused_build_ref", "sax_summarize_ref", "zorder_ref",
-           "unpack_codes_ref", "mindist_batch_packed_ref"]
+           "unpack_codes_ref", "mindist_batch_packed_ref", "pool_merge_ref"]
 
 ED_LANES = 32
 # elements per [Q, rows, L] or [Q, rows, w] intermediate: rows are taken in
@@ -250,3 +250,53 @@ def fused_build_ref(x: torch.Tensor, bps: torch.Tensor, *,
     :func:`zorder_ref`, the two stages the kernel fuses."""
     p, codes = sax_summarize_ref(x, bps, segments=segments)
     return p, codes, zorder_ref(codes, w=segments, b=bits)
+
+
+def pool_merge_ref(md: torch.Tensor, dd: torch.Tensor, leaves: torch.Tensor,
+                   leaf: int, dead, ids: torch.Tensor, best_d: torch.Tensor,
+                   best_off: torch.Tensor, ext: torch.Tensor,
+                   counts: torch.Tensor, row_mark: torch.Tensor,
+                   leaf_mark: torch.Tensor) -> None:
+    """Fold one leaf group into the per-query pools, in place (see
+    ``csrc/pool_merge.cu`` for the contract and
+    :func:`repro_torch.kernels.pool_merge.pool_merge` for the shapes).
+
+    Live pairs are ``md < min(best_d[:, -1], ext)`` on rows not ``dead``;
+    they add to ``counts`` and mark ``row_mark`` and ``leaf_mark``.  A
+    query with a live row takes ``merge_topk``'s pool: its pool's entries
+    (the first ``(inf, -1)`` pad alone) and its live rows whose id is not
+    in the pool, stable-sorted by distance (NaN last), the first k,
+    padded with ``(inf, -1)``."""
+    nq, b = md.shape
+    k = best_d.shape[1]
+    j = torch.arange(b, device=md.device)
+    lf = leaves[j // leaf]
+    rows = lf * leaf + j % leaf
+    live = md < torch.minimum(best_d[:, -1], ext)[:, None]
+    if dead is not None:
+        live &= dead[rows] == 0
+    n_live = live.sum(1)
+    counts += n_live
+    qi, ji = live.nonzero(as_tuple=True)
+    leaf_mark[qi, lf[ji]] = 1
+    row_mark[rows[ji]] = 1
+    cols = live.any(0).nonzero()[:, 0]          # rows live for some query
+    if len(cols) == 0:
+        return
+    cand = ids[rows[cols]]
+    pad = best_off == -1
+    pool_ok = ~pad | (pad & (pad.cumsum(1) == 1))
+    new_ok = live[:, cols] & ~(cand[None, :, None]
+                               == best_off[:, None, :]).any(2)
+    d = torch.cat([best_d, dd[:, cols]], 1)
+    off = torch.cat([best_off, cand.expand(nq, -1)], 1)
+    ok = torch.cat([pool_ok, new_ok], 1)
+    # stable sorts: by distance, then the entries that take part first
+    by_d = torch.sort(d, dim=1, stable=True)[1]
+    by_ok = torch.sort((~ok.gather(1, by_d)).to(torch.int8), dim=1,
+                       stable=True)[1]
+    sel = by_d.gather(1, by_ok)[:, :k]
+    keep = ok.gather(1, sel)
+    upd = n_live > 0
+    best_d[upd] = torch.where(keep, d.gather(1, sel), float("inf"))[upd]
+    best_off[upd] = torch.where(keep, off.gather(1, sel), -1)[upd]

@@ -14,7 +14,10 @@ step inside a search call lies in one:
   holding ``prune`` and, a leaf group at a time, ``bound`` (row indices,
   code gather, bound launch, copy back, live mask), ``verify`` (row
   gather, ED or fused launch, copy back) and ``merge`` (host ``KnnPool``
-  updates);
+  updates); where the partition's pools stay on its device, the three
+  time the host's issue of the group's launches (``merge``: the
+  ``pool_merge`` fold) and the partition's one wait is ``sync`` (the
+  pools and counters copied back);
 * ``buffer`` — an unsorted buffer's brute-force scan (copy to the
   device, ED, sort, copy back), its ``merge`` a child;
 * ``frontier`` and ``progress`` — the budgeted drain's global leaf

@@ -5,12 +5,22 @@ cheapest fence bound first — skip-sequential SIMS); unsorted frozen
 buffers are copied to the partition's device and brute-force verified
 with the same Euclidean kernel (:func:`buffer_topk`), so answer
 *distances* are bit-identical however the rows are partitioned — the
-invariant the streaming engine is built on.  The host structure is
-the reference's: per leaf group one device-to-host copy of the bound, a
-host-side live mask, one verification launch over the rows any query
-kept, and per-query :class:`KnnPool` updates.  A segment partition reads
-each group's rows off its mmap (or its tier cache) and copies them to
-its device first; a format-v3 segment's code rows go to the
+invariant the streaming engine is built on.
+
+A device-backed partition (a tree, on the card or the CPU) keeps its
+k-NN pools on its device through the leaf-group loop
+(:class:`~repro_torch.query.merger.DeviceKnnPool`): per group the bound,
+the cross ED over the group's rows and the ``pool_merge`` fold are issued
+without waiting, and the pools come back to the host once, at the
+partition's end.  The groups, their order and so each group's bound are
+the host loop's, and the fold keeps ``merge_topk``'s contract, so
+answers and counters do not depend on which loop ran.  A segment
+partition, the fused path and a k above the kernel's keep the host loop,
+the reference's structure: per leaf group one device-to-host copy of the
+bound, a host-side live mask, one verification launch over the rows any
+query kept, and per-query :class:`KnnPool` updates.  A segment partition
+reads each group's rows off its mmap (or its tier cache) and copies them
+to its device first; a format-v3 segment's code rows go to the
 ``unpack_mindist`` kernel in their packed form when the bound is the
 default one.
 
@@ -30,15 +40,20 @@ pair of clock readings gives both): ``plan`` (the queries' PAA and the
 planner), ``seed`` (one sorted partition's probe: ``seed.window``, the
 query summaries, z-order keys, key search and copy back;
 ``seed.distances``, the gathered ED, copy back and ``alive`` mask; and
-its ``merge``), ``bound`` (row indices, code gather, bound launch, copy
-back and live mask), ``verify`` (row gather, ED or fused launch and the
-copy back), ``merge`` (host pool updates: after the seeds, each leaf
-group and the buffer), ``buffer`` (the brute-force scan of an unsorted
-buffer: copy to the device, ED, sort, copy back and its ``merge``) and
-``scan`` (everything after planning, timed apart from the per-partition
-``scan`` spans).  ``SearchStats.host_syncs`` counts the round trips: one
-per bound and per verification of a leaf group (four on the fused path),
-two per seed probe and two per buffer scan.
+its ``merge``), ``bound`` (row indices, code gather, bound launch, and
+in the host loop the copy back and live mask), ``verify`` (row gather, ED
+or fused launch, and in the host loop the copy back), ``merge`` (host
+pool updates after the seeds, each host-loop group and the buffer; the
+``pool_merge`` launch of a device-loop group), ``sync`` (a device loop's
+one wait: the pools and counters copied back), ``buffer`` (the
+brute-force scan of an unsorted buffer: copy to the device, ED, sort,
+copy back and its ``merge``) and ``scan`` (everything after planning,
+timed apart from the per-partition ``scan`` spans, which carry
+``device_pool`` and ``groups``).  On a device loop ``bound``, ``verify``
+and ``merge`` time the host's issue of the launches, not the card's work.
+``SearchStats.host_syncs`` counts the round trips: two per seed probe,
+one per device loop, one per bound and per verification of a host-loop
+group (four on the fused path), and two per buffer scan.
 """
 from __future__ import annotations
 
@@ -51,7 +66,7 @@ import torch
 from ..core import summarization as S
 from ..kernels import ops
 from ..obs import record_search, span as _span, stage
-from .merger import KnnPool, SearchStats
+from .merger import DeviceKnnPool, KnnPool, SearchStats
 from .partition import Partition
 from .planner import ScanEntry, ScanPlan, build_plan
 
@@ -246,9 +261,10 @@ def _scan_leaf_group(entry: ScanEntry, queries_t, q_paas_t,
 def _scan_sorted(entry: ScanEntry, queries_t, q_paas_t, k: int,
                  pool: KnnPool, stats: SearchStats, *,
                  radius_leaves: int, chunk: int, io, mindist_fn,
-                 fused: bool, label: str = "") -> int:
+                 fused: bool, label: str = "") -> Tuple[int, int, bool]:
     """Seed + leaf-skip scan + verify one sorted partition.  Returns the
-    number of live (query, row) pairs the lower bound could not prune."""
+    number of live (query, row) pairs the lower bound could not prune,
+    the leaf groups issued, and whether the pools stayed on the device."""
     part = entry.partition
     nq = queries_t.shape[0]
     leaf = part.leaf_size
@@ -266,7 +282,7 @@ def _scan_sorted(entry: ScanEntry, queries_t, q_paas_t, k: int,
             stats.partitions_pruned += 1
             stats.leaves_pruned += part.n_leaves
             psp.set(leaves_pruned=part.n_leaves, whole_partition=True)
-            return 0
+            return 0, 0, False
         lb = entry.leaf_bounds                                # [Q, n_leaves]
         surv = np.nonzero((lb < bound[:, None]).any(axis=0))[0]
         stats.leaves_pruned += lb.shape[1] - len(surv)
@@ -276,16 +292,20 @@ def _scan_sorted(entry: ScanEntry, queries_t, q_paas_t, k: int,
         if len(surv) == 0:
             stats.partitions_pruned += 1
             psp.set(whole_partition=True)
-            return 0
+            return 0, 0, False
         # cheapest leaves first: the bound tightens fastest, pruning the rest
         surv = surv[np.argsort(lb[:, surv].min(axis=0), kind="stable")]
 
     leaves_per_grp = _leaves_per_group(chunk, nq, leaf)
+    groups = [np.sort(surv[g:g + leaves_per_grp])   # sequential within grp
+              for g in range(0, len(surv), leaves_per_grp)]
+    if part.backend == "device" and not fused and k <= ops.POOL_MAX_K:
+        return _scan_device(entry, queries_t, q_paas_t, groups, pool, stats,
+                            io=io, mindist_fn=mindist_fn, label=label)
     leaf_mark = np.zeros((nq, lb.shape[1]), bool)
     union_mark = np.zeros(lb.shape[1], bool)
     live_pairs = 0
-    for g in range(0, len(surv), leaves_per_grp):
-        grp = np.sort(surv[g:g + leaves_per_grp])    # sequential within grp
+    for grp in groups:
         live, nbytes = _scan_leaf_group(
             entry, queries_t, q_paas_t, grp, k, pool, stats, alive,
             offs_all, leaf_mark, union_mark, io, mindist_fn, fused)
@@ -295,7 +315,77 @@ def _scan_sorted(entry: ScanEntry, queries_t, q_paas_t, k: int,
     stats.leaves_per_query += leaf_mark.sum(axis=1)
     if label:
         stats.touch_leaves(label, np.nonzero(union_mark)[0])
-    return live_pairs
+    return live_pairs, len(groups), False
+
+
+def _scan_device(entry: ScanEntry, queries_t, q_paas_t,
+                 groups: Sequence[np.ndarray], pool: KnnPool,
+                 stats: SearchStats, *, io, mindist_fn, label: str
+                 ) -> Tuple[int, int, bool]:
+    """The leaf-group loop of a device-backed partition, with the pools on
+    the card (:class:`DeviceKnnPool`): per group the bound, the cross ED
+    over the group's rows and the ``pool_merge`` fold are issued without
+    waiting, and the partition's one wait is the ``sync`` stage's copy
+    back.  Same groups in the same order, so each group sees the bound the
+    host loop gives it, and the same answers and counters."""
+    part = entry.partition
+    leaf, n = part.leaf_size, part.n
+    dev = queries_t.device
+    dpool = DeviceKnnPool(pool, dev, n_leaves=part.n_leaves, leaf_size=leaf)
+    order = torch.from_numpy(np.concatenate(groups)).to(dev)
+    ids = part.device_report_ids()
+    dead = part.device_dead(entry.ts_min)
+    # a group's rows: whole leaves, but the partition's last may be short
+    # (it sorts last in its group)
+    sizes = [(len(grp) - 1) * leaf + min(leaf, n - int(grp[-1]) * leaf)
+             for grp in groups]
+    _issue_groups(part, queries_t, q_paas_t, groups, sizes, order, dpool,
+                  dead, ids, stats, mindist_fn)
+    with stage(stats, "sync"):
+        live, leaves, verified = dpool.store(pool)
+        stats.host_syncs += 1
+    if io is not None:
+        for grp in groups:
+            if verified[grp].any():
+                io.seq_read(int(verified[grp].sum()))
+    touched = verified > 0
+    stats.candidates += int(verified.sum())
+    stats.candidates_per_query += live
+    stats.leaves_per_query += leaves
+    stats.leaves_touched += int(touched.sum())
+    stats.scan_bytes += (sum(sizes) * part.cfg.segments
+                         + int(verified.sum()) * part.cfg.series_len * 4)
+    if label:
+        stats.touch_leaves(label, np.nonzero(touched)[0])
+    return int(live.sum()), len(groups), True
+
+
+def _issue_groups(part: Partition, queries_t, q_paas_t,
+                  groups: Sequence[np.ndarray], sizes: Sequence[int],
+                  order: torch.Tensor, dpool: DeviceKnnPool, dead, ids,
+                  stats: SearchStats, mindist_fn) -> None:
+    """Issue every group's launches, cheapest group first, waiting for
+    nothing: a one-leaf group reads its rows as slices of the tree's
+    columns, a larger one gathers them through row numbers made on the
+    device from ``order`` (the groups' leaves, uploaded once)."""
+    leaf, src = part.leaf_size, part.source
+    lanes = torch.arange(leaf, device=order.device)
+    at = 0
+    for grp, b in zip(groups, sizes):
+        leaves = order[at:at + len(grp)]
+        at += len(grp)
+        with stage(stats, "bound", rows=b):
+            if len(grp) == 1:
+                s = int(grp[0]) * leaf
+                sel = slice(s, s + b)
+            else:
+                sel = (leaves[:, None] * leaf + lanes).reshape(-1)[:b]
+            md = mindist_fn(q_paas_t, src.codes[sel])
+        with stage(stats, "verify", rows=b,
+                   raw_bytes=b * part.cfg.series_len * 4):
+            dd = ops.batch_euclid_multi(queries_t, src.series(sel))
+        with stage(stats, "merge"):
+            dpool.fold(md, dd, leaves, dead, ids)
 
 
 def _verify_fused(entry: ScanEntry, queries_t, q_paas_t, codes_blk,
@@ -440,13 +530,15 @@ def _execute(plan: ScanPlan, queries_np: np.ndarray, stats: SearchStats, *,
         b_bytes, b_cand = stats.scan_bytes, stats.candidates
         with _span("scan", part=label, rows=part.n,
                    leaves=part.n_leaves) as sp:
-            live_pairs += _scan_sorted(
+            live, groups, device_pool = _scan_sorted(
                 entry, queries_t, q_paas_t, k, pool, stats,
                 radius_leaves=radius_leaves, chunk=chunk, io=io,
                 mindist_fn=part_mindist,
                 fused=scan_mode == "kernel" and part.backend == "device",
                 label=label)
-            sp.set(leaves_scanned=stats.leaves_scanned - b_scanned,
+            live_pairs += live
+            sp.set(device_pool=device_pool, groups=groups,
+                   leaves_scanned=stats.leaves_scanned - b_scanned,
                    leaves_pruned=stats.leaves_pruned - b_pruned,
                    scan_bytes=stats.scan_bytes - b_bytes,
                    candidates=stats.candidates - b_cand,

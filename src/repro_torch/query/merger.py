@@ -13,6 +13,12 @@ earliest pool entry, matching the strict ``d < bsf`` update rule of the
 historical single-query chain — so answers are identical whether rows
 arrive from one partition or many, in any visit order, for any batch
 size.
+
+A :class:`DeviceKnnPool` holds a :class:`KnnPool`'s pools on a partition's
+device while the exact scan walks that partition's leaf groups: the
+``pool_merge`` kernel folds each group in under the same contract, so the
+scan never waits for the card, and the pools come back to the host pool
+once, at the partition's end.
 """
 from __future__ import annotations
 
@@ -20,8 +26,12 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["SearchStats", "KnnPool", "merge_topk", "merge_pools"]
+from ..kernels import ops
+
+__all__ = ["SearchStats", "KnnPool", "DeviceKnnPool", "merge_topk",
+           "merge_pools"]
 
 
 @dataclasses.dataclass
@@ -193,3 +203,62 @@ class KnnPool:
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.best_d, self.best_off
+
+
+class DeviceKnnPool:
+    """A :class:`KnnPool`'s pools on one partition's device, and what the
+    partition's scan touched, accumulated there.
+
+    Loaded from the host pool once (after the partition's seed and fence
+    pruning), folded into by :meth:`fold` once a leaf group, and stored
+    back into the host pool by :meth:`store`, the one copy back.  Besides
+    ``best_d [Q, k]``, ``best_off [Q, k]`` and ``ext [Q]`` it keeps the
+    per-query live counts, a mark per verified row (``row_mark``, padded to
+    whole leaves) and a mark per (query, leaf) with a live row.  The
+    pruning bound, min(k-th best, external bsf), is read on the card by
+    the fold itself."""
+
+    def __init__(self, pool: KnnPool, device: torch.device, *,
+                 n_leaves: int, leaf_size: int):
+        nq = pool.best_d.shape[0]
+        self.leaf_size = leaf_size
+        self.best_d = torch.tensor(pool.best_d, device=device)
+        self.best_off = torch.tensor(pool.best_off, device=device)
+        self.ext = torch.tensor(pool.ext, device=device)
+        self.counts = torch.zeros(nq, dtype=torch.int64, device=device)
+        self.row_mark = torch.zeros(n_leaves * leaf_size, dtype=torch.uint8,
+                                    device=device)
+        self.leaf_mark = torch.zeros((nq, n_leaves), dtype=torch.uint8,
+                                     device=device)
+
+    def fold(self, md: torch.Tensor, dd: torch.Tensor, leaves: torch.Tensor,
+             dead: Optional[torch.Tensor], ids: torch.Tensor) -> None:
+        """Fold one leaf group in: ``md``/``dd`` ``[Q, B]`` its bound and
+        cross ED, row ``j`` row ``j % leaf`` of leaf ``leaves[j // leaf]``;
+        ``dead``/``ids`` the partition's dead-row mask and report ids."""
+        ops.pool_merge(md, dd, leaves, self.leaf_size, dead, ids,
+                       self.best_d, self.best_off, self.ext, self.counts,
+                       self.row_mark, self.leaf_mark)
+
+    def store(self, pool: KnnPool) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+        """Write the pools back into ``pool`` in one copy to the host.
+        Returns ``(live [Q], leaves [Q], verified [n_leaves])``: each
+        query's live rows and touched leaves, and each leaf's verified
+        rows (rows live for any query)."""
+        nq, k = self.best_d.shape
+        n_leaves = self.leaf_mark.shape[1]
+        ints = torch.cat([
+            self.best_off.reshape(-1), self.counts,
+            self.leaf_mark.sum(1, dtype=torch.int64),
+            self.row_mark.view(n_leaves, self.leaf_size).sum(
+                1, dtype=torch.int64)])
+        host = torch.cat([ints.view(torch.uint8),
+                          self.best_d.reshape(-1).view(torch.uint8)]).cpu()
+        raw = host.numpy()
+        ints = raw[:ints.numel() * 8].view(np.int64)
+        pool.best_off = ints[:nq * k].reshape(nq, k).copy()
+        pool.best_d = raw[ints.nbytes:].view(np.float32).reshape(nq, k).copy()
+        live = ints[nq * k:nq * k + nq]
+        leaves = ints[nq * k + nq:nq * k + 2 * nq]
+        return live, leaves, ints[nq * k + 2 * nq:]

@@ -387,6 +387,27 @@ class Partition:
             cache[name] = getattr(src, name).cpu().numpy()
         return cache[name]
 
+    # ------------------------------------------------- a tree's device columns
+    def device_report_ids(self) -> torch.Tensor:
+        """A tree's reported ids (:meth:`report_ids`) as an int64 column
+        on its device, converted once per source when stored narrower."""
+        col = self.source.ids if self.source.ids is not None \
+            else self.source.offsets
+        if col.dtype == torch.int64:
+            return col
+        cache = self.source.__dict__.setdefault("_coconut_dev_cols", {})
+        if "ids" not in cache:
+            cache["ids"] = col.to(torch.int64)
+        return cache["ids"]
+
+    def device_dead(self, ts_min: Optional[int]) -> Optional[torch.Tensor]:
+        """A tree's rows stamped before ``ts_min``, a bool column made on
+        its device; None without a cut or without timestamps."""
+        ts = self.source.timestamps
+        if ts_min is None or ts is None:
+            return None
+        return ts.to(torch.int64) < int(ts_min)
+
     def buffer_raw(self) -> np.ndarray:
         """A buffer partition's rows, on the host in insertion order."""
         return np.asarray(self.source.raw)

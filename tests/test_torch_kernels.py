@@ -21,7 +21,9 @@ ragged 31, one past a tile and one past a chunk, from row slices that are
 not 16-byte aligned, words with their top bit set.  Cross-kernel identities:
 ``sax_summarize`` + ``zorder`` == ``fused_build`` and ``unpack_mindist``
 == ``mindist_batch`` on the decoded codes, bit for bit.
-``chip_smoke.py``'s kernel phase runs the same checks.
+``chip_smoke.py``'s kernel phase runs the same checks.  Beside them,
+``pool_merge`` against its twin over four folds in turn, k up to 256, and
+the exact loop over 2^23 rows with every synchronizing call an error.
 """
 from __future__ import annotations
 
@@ -707,3 +709,117 @@ def test_sax_summarize_and_zorder_equal_fused_build(cuda, L, w):
         keys = _zorder_same_as_twin(codes, w, b)
         for g, want in zip((paa, codes, keys), ops.summarize_and_key(x, cfg)):
             _same(g, want)
+
+
+# the exact scan's pool fold: kernel == twin, four groups folded in turn so
+# the pools carry over, distances on a coarse grid (ties everywhere),
+# duplicate rows, infinite and NaN-free candidates, a group folded again
+# (every id already pooled), dead rows, k up to the kernel's 256, B past
+# one and two tiles of 1024 rows, a short last leaf
+POOL_SHAPES = ((1, 1, 2000), (8, 2, 2000), (64, 1, 2000), (64, 2, 1000),
+               (3, 5, 257), (130, 1, 64))
+
+
+def _pool_state(rng, nq, k, n, n_leaves, leaf, dev):
+    ext = np.full(nq, np.inf, np.float32)
+    ext[::4] = rng.uniform(2, 8, len(ext[::4]))
+    st = dict(best_d=torch.full((nq, k), float("inf")),
+              best_off=torch.full((nq, k), -1, dtype=torch.int64),
+              ext=torch.from_numpy(ext),
+              counts=torch.zeros(nq, dtype=torch.int64),
+              row_mark=torch.zeros(n_leaves * leaf, dtype=torch.uint8),
+              leaf_mark=torch.zeros((nq, n_leaves), dtype=torch.uint8))
+    return {name: t.to(dev) for name, t in st.items()}
+
+
+@pytest.mark.parametrize("k", (1, 10, 256))
+@pytest.mark.parametrize("nq,b_leaves,leaf", POOL_SHAPES)
+def test_pool_merge_kernel(cuda, nq, b_leaves, leaf, k):
+    rng = np.random.default_rng(nq * 1000 + k + leaf)
+    n_leaves = 7
+    n = n_leaves * leaf - 5
+    ids = torch.from_numpy(rng.permutation(4 * n)[:n].astype(np.int64))
+    dead = torch.from_numpy(rng.random(n) < 0.1)
+    cpu = _pool_state(rng, nq, k, n, n_leaves, leaf, "cpu")
+    card = {name: t.to(cuda) for name, t in cpu.items()}
+    groups = [np.sort(rng.choice(n_leaves, b_leaves, replace=False))
+              for _ in range(3)]
+    groups.insert(2, groups[0])                    # rows found again
+    inputs = []
+    for leaves in groups:
+        b = (len(leaves) - 1) * leaf + min(leaf, n - int(leaves[-1]) * leaf)
+        dd = rng.integers(0, 60, (nq, b)).astype(np.float32) / 4
+        dd[:, ::5] = dd[:, :1]
+        dd[rng.random((nq, b)) < 0.01] = np.inf
+        md = np.minimum(dd, rng.uniform(0, 15, (nq, b)).astype(np.float32))
+        inputs.append((torch.from_numpy(md), torch.from_numpy(dd),
+                       torch.from_numpy(leaves.astype(np.int64))))
+    inputs[2] = inputs[0]
+    before = loader.LAUNCHES["pool_merge"]
+    for gi, (md, dd, leaves) in enumerate(inputs):
+        use_dead = dead if gi % 2 else None
+        ref.pool_merge_ref(md, dd, leaves, leaf, use_dead, ids, **cpu)
+        ops.pool_merge(md.to(cuda), dd.to(cuda), leaves.to(cuda), leaf,
+                       None if use_dead is None else use_dead.to(cuda),
+                       ids.to(cuda), **card)
+        torch.cuda.synchronize()
+        for name, t in cpu.items():
+            got = card[name]
+            if t.dtype == torch.float32:
+                t, got = t.view(torch.int32), got.view(torch.int32)
+            _same(got, t)
+    assert loader.LAUNCHES["pool_merge"] == before + len(inputs)
+    assert int(cpu["counts"].sum()) > 0 and cpu["best_off"].max() >= 0
+
+
+def test_pool_merge_rejects_large_k(cuda):
+    z = torch.zeros((2, 10), device=cuda)
+    st = _pool_state(np.random.default_rng(0), 2, 257, 10, 1, 10, cuda)
+    with pytest.raises(ValueError):
+        ops.pool_merge(z, z, torch.zeros(1, dtype=torch.int64, device=cuda),
+                       10, None, torch.arange(10, device=cuda), **st)
+
+
+def test_card_loop_never_waits(cuda, monkeypatch):
+    """One exact batch of 64 queries over 2^23 walks of the paper's shape
+    (half of them dataset rows): every synchronizing call is an error from
+    the loop's first launch to its ``sync`` stage, the merge kernel runs
+    once a group, and the batch's round trips are the seed's two and the
+    partition's one."""
+    from repro_torch.configs import INDEX, LEAF_SIZE
+    from repro_torch.core import tree as T
+    from repro_torch.query import executor as X
+    g = torch.Generator(device=cuda).manual_seed(7)
+    raw = torch.randn((1 << 23, INDEX.series_len), generator=g,
+                      device=cuda).cumsum_(1)
+    tree = T.build(raw, INDEX, leaf_size=LEAF_SIZE, znorm=True, device=cuda)
+    del raw
+    q = tree.raw[torch.randint(0, tree.n, (64,), generator=g,
+                               device=cuda)].cpu().numpy()
+    walks = np.cumsum(np.random.default_rng(7).standard_normal(
+        (32, INDEX.series_len)), 1)
+    q[1::2] = (walks - walks.mean(1, keepdims=True)) / walks.std(
+        1, keepdims=True)
+    T.exact_search_batch(tree, q, k=10)            # warm: tables, plans
+    issue = X._issue_groups
+    groups = []
+
+    def strict(*a, **kw):
+        groups.append(len(a[3]))           # _issue_groups(.., groups, ..)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return issue(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(X, "_issue_groups", strict)
+    before = loader.LAUNCHES["pool_merge"]
+    _, o, st = T.exact_search_batch(tree, q, k=10)
+    merges = loader.LAUNCHES["pool_merge"] - before
+    print(f"\npool_merge launches {merges} over {sum(groups)} groups; "
+          f"host_syncs {st.host_syncs}; leaves_scanned "
+          f"{st.leaves_scanned}; LAUNCHES {dict(loader.LAUNCHES)}")
+    assert merges == sum(groups) > 0 and st.leaves_scanned > 0
+    assert st.host_syncs == 3
+    assert (o[::2] >= 0).all()
+    del tree
+    torch.cuda.empty_cache()

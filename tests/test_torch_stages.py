@@ -10,9 +10,11 @@ an LSM snapshot with its buffer under a window):
   the export passes ``obs.validate``;
 * each stage's summed span durations equal its timing;
 * ``SearchStats.host_syncs`` equals the count the loop's structure
-  gives: two a seed probe (its window and its distances), one a bound,
-  one a verification (four a fused group) and two a buffer scan, from
-  the kernels' own call counts;
+  gives: two a seed probe (its window and its distances), one ``sync``
+  a device-backed partition whose pools stayed on its device (however
+  many leaf groups it issued), one a bound and one a verification of a
+  host loop's group (four a fused group) and two a buffer scan, from the
+  kernels' own call counts;
 * tracing off records no span and gives the same answer bits.
 
 The benchmark's readers of these numbers (``perfbench/metrics/``) are
@@ -39,6 +41,8 @@ from repro_torch.obs import (disable_tracing, enable_tracing, get_registry,
                              get_tracer, install_query_log, probe)
 from repro_torch.obs import validate as PV
 from repro_torch.query import Partition, exact_knn
+from repro_torch.query import executor as X
+from repro_torch.query.merger import DeviceKnnPool
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -51,7 +55,7 @@ BUDGET = 3
 WINDOW = 1400
 PATHS = ("exact", "kernel", "budget", "lsm")
 STAGES = ("plan", "seed", "seed.window", "seed.distances", "bound",
-          "verify", "merge", "buffer", "frontier", "progress")
+          "verify", "merge", "sync", "buffer", "frontier", "progress")
 
 _SEED = [("scan", "seed"), ("seed", "seed.window"),
          ("seed", "seed.distances"), ("seed", "merge")]
@@ -59,7 +63,7 @@ _GROUP = [("scan", "prune"), ("scan", "bound"), ("scan", "verify"),
           ("scan", "merge")]
 EDGES = {
     "exact": {("probe", "plan"), ("probe", "scan"), (None, "probe"),
-              *_SEED, *_GROUP},
+              *_SEED, *_GROUP, ("scan", "sync")},
     "kernel": {("probe", "plan"), ("probe", "scan"), (None, "probe"),
                *_SEED, *_GROUP},
     "budget": {(None, "probe"), ("probe", "plan"), ("probe", "frontier"),
@@ -69,7 +73,7 @@ EDGES = {
                *[e for e in _GROUP if e[1] != "prune"]},
     "lsm": {(None, "snapshot"), (None, "probe"), ("probe", "plan"),
             ("probe", "scan"), ("scan", "buffer"), ("buffer", "merge"),
-            *_SEED, *_GROUP},
+            *_SEED, *_GROUP, ("scan", "sync")},
 }
 
 
@@ -156,6 +160,11 @@ def test_span_tree_is_pinned_and_valid(env, path):
     # drain seeds outside its scan spans)
     scans = [s["args"] for s in spans if s["name"] == "scan"]
     if path != "budget":
+        # the pools stay on the device on the eager chain's tree partitions
+        sorted_scans = [a for a in scans if a.get("groups")]
+        assert sorted_scans
+        assert all(a["device_pool"] == (path != "kernel")
+                   for a in sorted_scans)
         assert sum(a.get("candidates", 0) for a in scans) == st.candidates
         assert sum(a["host_syncs"] for a in scans) == st.host_syncs
     else:
@@ -194,16 +203,32 @@ def test_host_syncs_follow_the_loop(env, path, monkeypatch):
     monkeypatch.setattr(ops, "batch_euclid_multi", counted(
         None, ops.batch_euclid_multi,
         lambda kw: "seed" if kw.get("idx") is not None else "cross"))
+    monkeypatch.setattr(ops, "pool_merge", counted("fold", ops.pool_merge))
+    monkeypatch.setattr(DeviceKnnPool, "store",
+                        counted("sync", DeviceKnnPool.store))
     _, _, st = _search(path, env)
     buffers = 1 if path == "lsm" else 0
     assert calls["seed"] >= 1 and calls["cross"] + calls["fused"] > buffers
-    want = (2 * calls["seed"] + calls["bound"] + calls["cross"]
-            + 4 * calls["fused"] + buffers)
+    if path in ("exact", "lsm"):
+        # a fold a group, one copy back a partition
+        assert calls["fold"] == calls["bound"] > 0 and calls["sync"] >= 1
+        want = 2 * calls["seed"] + calls["sync"] + 2 * buffers
+    else:
+        assert calls["fold"] == calls["sync"] == 0
+        want = (2 * calls["seed"] + calls["bound"] + calls["cross"]
+                + 4 * calls["fused"])
     assert st.host_syncs == want, (calls, st.host_syncs)
     if path == "kernel":
         assert calls["bound"] == 0 and calls["fused"] > 0
     else:
         assert calls["fused"] == 0 and calls["bound"] > 0
+    if path in ("exact", "lsm"):
+        # a leaf a group: many more groups, the same round trips
+        groups = calls["fold"]
+        monkeypatch.setattr(X, "_leaves_per_group", lambda *a: 1)
+        _, _, st1 = _search(path, env)
+        assert calls["fold"] - groups > 2 * groups
+        assert st1.host_syncs == st.host_syncs
 
 
 @pytest.mark.parametrize("path", PATHS)
